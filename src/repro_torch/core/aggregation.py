@@ -1,0 +1,90 @@
+"""Layer-wise bias-corrected aggregation (Eq. 5 of the paper), in gradient
+form (port of ``repro.core.aggregation``).
+
+For client updates w_u^l = w^l - eta * g_u^l, Eq. (5) is equivalent to
+
+    g~^l = 0                                             if |U_t^l| = 0
+         = mean_{u in U^l} g_u^l / (1 - p^l)             otherwise
+
+followed by w~_{t+1} = w~_t - eta g~: a masked weighted reduction over the
+client axis. Every fold here goes through the hand-written kernel
+(:func:`repro_torch.kernels.ops.fold_leaf` -> ``adel_agg``) in the
+canonical ``(U, L_leaf, F)`` layout.
+
+Parameter->layer mapping: ``layer_ids(params)`` is a pytree congruent with
+``params`` whose leaves are an ``int`` (the whole tensor belongs to that
+layer) or an ``(L,)`` integer tensor (the leading axis is a stacked-layer
+axis; entry i is the layer id of slice i).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.kernels.ops import adel_aggregate, fold_leaf
+from repro_torch.tree import tree_map
+
+__all__ = ["layer_coefficients", "weight_by_layer", "aggregate_with_coeffs",
+           "aggregate_grads", "aggregate_grads_chunk", "masked_mean_grads"]
+
+PyTree = Any
+
+
+def layer_coefficients(mask: torch.Tensor, p: torch.Tensor, *,
+                       bias_correct: bool = True,
+                       counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-(client, layer) aggregation coefficient c[u, l]:
+    c[u, l] = mask[u, l] / count_l / (1 - p_l) if count_l > 0 else 0.
+    ``counts`` may be supplied externally (global counts of a chunk)."""
+    if counts is None:
+        counts = mask.sum(0)                                  # (L,)
+    denom = torch.clamp(counts, min=1.0)
+    scale = (counts > 0).to(mask.dtype)
+    if bias_correct:
+        scale = scale / torch.clamp(1.0 - p.to(mask.device), min=1e-6)
+    return mask * (scale / denom)[None, :]                    # (U, L)
+
+
+def weight_by_layer(g: torch.Tensor, ids, c_row: torch.Tensor) -> torch.Tensor:
+    """Scale ONE client's leaf by its per-layer coefficient row (the fold of
+    grad-accumulation layouts): sum_u weight_by_layer(g_u, ids, c[u]) equals
+    :func:`aggregate_with_coeffs` with coefficients ``c``."""
+    if not isinstance(ids, torch.Tensor) or ids.dim() == 0:
+        return g * c_row[int(ids)]
+    w = c_row.index_select(0, ids.to(device=c_row.device, dtype=torch.long))
+    return g * w.reshape((-1,) + (1,) * (g.dim() - 1))
+
+
+def aggregate_with_coeffs(grads: PyTree, layer_ids: PyTree,
+                          coeffs: torch.Tensor) -> PyTree:
+    """``agg^l = sum_u coeffs[u, l] g_u^l`` with EXPLICIT coefficients.
+    grads leaves: (U,) + param.shape; coeffs: (U, L)."""
+    return tree_map(lambda g, ids: fold_leaf(g, ids, coeffs), grads, layer_ids)
+
+
+def aggregate_grads(grads: PyTree, layer_ids: PyTree, mask: torch.Tensor,
+                    p: torch.Tensor, *, bias_correct: bool = True) -> PyTree:
+    """ADEL-FL aggregation of stacked per-client grads: mask (U, L),
+    p (L,); returns the aggregated pytree (no client axis)."""
+    return adel_aggregate(grads, layer_ids, mask, p, bias_correct=bias_correct)
+
+
+def aggregate_grads_chunk(chunk_grads: PyTree, layer_ids: PyTree,
+                          chunk_mask: torch.Tensor, p: torch.Tensor,
+                          counts: torch.Tensor, *,
+                          bias_correct: bool = True) -> PyTree:
+    """One chunk's partial aggregate against the GLOBAL per-layer counts;
+    summing the partials over all chunks equals :func:`aggregate_grads` on
+    the concatenated client axis."""
+    c = layer_coefficients(chunk_mask, p, bias_correct=bias_correct,
+                           counts=counts)
+    return aggregate_with_coeffs(chunk_grads, layer_ids, c)
+
+
+def masked_mean_grads(grads: PyTree, layer_ids: PyTree,
+                      mask: torch.Tensor) -> PyTree:
+    """Plain masked mean without bias correction (Drop-Stragglers-style
+    with an all-or-nothing mask)."""
+    p = torch.zeros(mask.shape[1], dtype=mask.dtype, device=mask.device)
+    return aggregate_grads(grads, layer_ids, mask, p, bias_correct=False)

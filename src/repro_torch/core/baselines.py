@@ -1,0 +1,161 @@
+"""Round policies: ADEL-FL and the paper's baselines (Section IV), in
+PyTorch (port of ``repro.core.baselines``).
+
+A policy decides, per round t: the deadline T_t (the simulated round
+wall-clock), each client's batch size S_t^u, the per-(client, layer)
+contribution mask, and the aggregation rule (bias-corrected layer-wise or
+plain mean). Policies plan against the static config they were built with
+(the reference's per-round cohort ``view`` serves fleets, not ported yet).
+
+All randomness flows through the ``draws`` object the runtime passes to
+:meth:`Policy.round` (:class:`repro_torch.fl.runtime.Draws`: ``poisson(t,
+lam)`` and ``gamma(t, a, n)``), so runs are reproducible and tests can
+inject the reference's own draws. Plans are (U,)/(L,)-sized host tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from . import straggler
+from .types import AnalysisConfig, Schedule
+
+__all__ = ["RoundPlan", "Policy", "AdelPolicy", "SalfPolicy", "DropPolicy",
+           "WaitPolicy", "make_policy"]
+
+
+@dataclasses.dataclass
+class RoundPlan:
+    mask: torch.Tensor         # (U, L) layer contribution mask
+    p: torch.Tensor            # (L,) zero-contributor probabilities (0 where unused)
+    batch_sizes: torch.Tensor  # (U,)
+    elapsed: float             # simulated wall-clock consumed by this round
+    bias_correct: bool         # Eq. (5) 1/(1-p) correction?
+
+
+class Policy:
+    """Per-round decision maker: ``round(draws, t)`` plans round t."""
+
+    name: str = "base"
+
+    def __init__(self, cfg: AnalysisConfig):
+        self.cfg = cfg
+
+    def round(self, draws, t: int) -> RoundPlan:  # pragma: no cover
+        raise NotImplementedError
+
+
+class AdelPolicy(Policy):
+    """ADEL-FL: Problem-2-optimized deadlines + B3 batch sizes + Eq. (5)."""
+
+    name = "adel"
+
+    def __init__(self, cfg: AnalysisConfig, schedule: Schedule):
+        super().__init__(cfg)
+        self.schedule = schedule
+
+    def round(self, draws, t):
+        T_t = float(self.schedule.T[t])
+        mask, p, S, _ = straggler.sample_round(
+            functools.partial(draws.poisson, t), T_t, self.schedule.m,
+            self.cfg)
+        return RoundPlan(mask=mask, p=p, batch_sizes=S, elapsed=T_t,
+                         bias_correct=True)
+
+
+class SalfPolicy(Policy):
+    """SALF: layer-wise aggregation with bias correction, but a FIXED
+    deadline T_max/R and one FIXED batch size for every user."""
+
+    name = "salf"
+
+    def __init__(self, cfg: AnalysisConfig, m: float):
+        super().__init__(cfg)
+        self.m = float(m)
+        self.T_t = cfg.T_max / cfg.R
+        self.S = straggler.fixed_batch(self.T_t, self.m, cfg)
+
+    def round(self, draws, t):
+        cfg = self.cfg
+        mask, p, _ = straggler.sample_round_fixed(
+            functools.partial(draws.poisson, t), self.T_t, self.S, cfg)
+        S = torch.full((cfg.U,), self.S)
+        return RoundPlan(mask=mask, p=p, batch_sizes=S, elapsed=self.T_t,
+                         bias_correct=True)
+
+
+class DropPolicy(Policy):
+    """Drop-Stragglers: fixed deadline; a client counts only if it finished
+    the FULL model in time (z_u >= L); late clients are discarded."""
+
+    name = "drop"
+
+    def __init__(self, cfg: AnalysisConfig, m: float):
+        super().__init__(cfg)
+        self.m = float(m)
+        self.T_t = cfg.T_max / cfg.R
+        self.S = straggler.fixed_batch(self.T_t, self.m, cfg)
+
+    def round(self, draws, t):
+        cfg = self.cfg
+        P = torch.as_tensor(cfg.P, dtype=torch.float32)
+        B = torch.as_tensor(cfg.B_eff, dtype=torch.float32)
+        lam = P / self.S * torch.clamp(self.T_t - B, min=0.0)
+        z = draws.poisson(t, lam)
+        full = (z >= cfg.L).to(torch.float32)                   # (U,)
+        mask = full[:, None].expand(cfg.U, cfg.L).contiguous()
+        S = torch.full((cfg.U,), self.S)
+        return RoundPlan(mask=mask, p=torch.zeros(cfg.L), batch_sizes=S,
+                         elapsed=self.T_t, bias_correct=False)
+
+
+class WaitPolicy(Policy):
+    """Wait-Stragglers (synchronous FedAvg): no deadline; the round lasts
+    until the slowest client finishes (max_u Gamma(L, S_u/P_u) + B_u), so
+    far fewer rounds fit inside T_max."""
+
+    name = "wait"
+
+    def __init__(self, cfg: AnalysisConfig, m: float):
+        super().__init__(cfg)
+        self.m = float(m)
+        self.T_ref = cfg.T_max / cfg.R
+        self.S = straggler.fixed_batch(self.T_ref, self.m, cfg)
+
+    def round(self, draws, t):
+        cfg = self.cfg
+        P = torch.as_tensor(cfg.P, dtype=torch.float32)
+        B = torch.as_tensor(cfg.B_eff, dtype=torch.float32)
+        # full backprop time = sum of L iid Exp(S/P) = Gamma(L, scale=S/P)
+        g = draws.gamma(t, cfg.L, cfg.U) * (self.S / P)
+        elapsed = float(torch.max(g + B))
+        mask = torch.ones((cfg.U, cfg.L), dtype=torch.float32)
+        S = torch.full((cfg.U,), self.S)
+        return RoundPlan(mask=mask, p=torch.zeros(cfg.L), batch_sizes=S,
+                         elapsed=elapsed, bias_correct=False)
+
+
+def make_policy(method: str, cfg: AnalysisConfig, *,
+                schedule: Schedule | None = None, m: float | None = None,
+                device=None) -> Policy:
+    """``device`` is where a missing schedule (``adel``) or m is solved."""
+    from .scheduler import constant_schedule, solve
+    if method == "adel":
+        if schedule is None:
+            schedule = solve(cfg, "trust-constr", device=device)
+        return AdelPolicy(cfg, schedule)
+    if method == "heterofl":
+        raise NotImplementedError(
+            "HeteroFL is not ported yet (ROADMAP.md, item 1.3: HeteroFL "
+            "policy and width-overlap aggregation)")
+    if m is None:
+        m = constant_schedule(cfg, device=device).m
+    if method == "salf":
+        return SalfPolicy(cfg, m)
+    if method == "drop":
+        return DropPolicy(cfg, m)
+    if method == "wait":
+        return WaitPolicy(cfg, m)
+    raise ValueError(f"unknown method {method!r}")

@@ -1,0 +1,42 @@
+"""Static-population front-end over the round runtime, in PyTorch (port of
+``repro.fl.server``).
+
+``run_federated`` probes ``s_max``, wraps the pre-stacked client arrays in
+a :class:`repro_torch.fl.runtime.StaticCohortSource` and hands the loop to
+:class:`repro_torch.fl.runtime.RoundRuntime` on the dense backend.
+"""
+from __future__ import annotations
+
+from repro_torch.core.baselines import Policy
+from repro_torch.core.types import AnalysisConfig
+from repro_torch.device import resolve_device
+from repro_torch.fl.runtime import (History, ModelAPI, RoundRuntime,
+                                    StaticCohortSource, probe_s_max)
+
+__all__ = ["run_federated"]
+
+PyTree = object
+
+
+def run_federated(model: ModelAPI, policy: Policy, cfg: AnalysisConfig,
+                  client_x, client_y, n_per_client, test_x, test_y, *,
+                  seed: int = 0, local_iters: int = 1, l2: float = 0.0,
+                  eval_every: int = 1, compression=None, on_round=None,
+                  init_params: PyTree | None = None, draws=None,
+                  device=None) -> tuple[PyTree, History]:
+    """Run up to R rounds at learning rates ``cfg.eta``, stopping when the
+    simulated clock would exceed T_max. Client arrays are numpy arrays or
+    tensors, moved to ``device`` (the card unless the caller passes
+    another). ``compression`` is None, ``"int8"``, ``"topk8"`` or
+    ``("topk8", frac)``. ``seed``, ``on_round``, ``draws`` and
+    ``init_params`` are those of :meth:`RoundRuntime.run`."""
+    dev = resolve_device(device)
+    # largest batch any client can be assigned under the policy
+    s_max = max(min(probe_s_max(policy, cfg.R), int(client_y.shape[1])), 2)
+    runtime = RoundRuntime(model, policy, local_iters=local_iters, l2=l2,
+                           compression=compression, device=dev)
+    source = StaticCohortSource(client_x, client_y, n_per_client, device=dev)
+    return runtime.run(source, rounds=cfg.R, T_max=cfg.T_max, eta=cfg.eta,
+                       s_max=s_max, test_x=test_x, test_y=test_y, seed=seed,
+                       eval_every=eval_every, on_round=on_round,
+                       init_params=init_params, draws=draws)

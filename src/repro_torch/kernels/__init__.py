@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version:
+
+* ``adel_agg`` — the Eq. 5 layer-wise fold (server hot loop);
+* ``adel_agg_q8`` — the fused int8 dequantize + weight + accumulate fold.
+
+CUDA C++ sources live in ``repro_torch/csrc`` and are built with ``nvcc``
+on first use (:mod:`repro_torch.kernels.build`).
+"""
+from repro_torch.kernels.adel_agg import adel_agg, adel_agg_q8
+
+__all__ = ["adel_agg", "adel_agg_q8"]

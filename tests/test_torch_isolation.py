@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: no JAX and nothing of ``repro`` in
+``src/repro_torch`` or ``chip_smoke.py``, and entry points run on the card
+unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_reference_import(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.fl.server, "
+            "repro_torch.models.paper_models, repro_torch.core.scheduler, "
+            "repro_torch.convert; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro imported'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def _cardless():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+
+
+def test_entry_points_default_to_the_card():
+    _cardless()
+    from repro_torch.core.scheduler import solve
+    from repro_torch.core.types import AnalysisConfig
+    from repro_torch.fl.backends import DenseBackend
+    from repro_torch.fl.runtime import RoundRuntime
+    from repro_torch.fl.server import run_federated
+    from repro_torch.models.paper_models import make_mlp
+    from repro_torch.core.baselines import make_policy
+
+    cfg = AnalysisConfig.default(U=4, L=3, R=3, T_max=6.0)
+    model = make_mlp(input_dim=8, hidden=(4, 4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve(cfg, "adam", steps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DenseBackend(model)
+    policy = make_policy("salf", cfg, m=2.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RoundRuntime(model, policy)
+    x = np.zeros((4, 5, 8), np.float32)
+    y = np.zeros((4, 5), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_federated(model, policy, cfg, x, y, np.full(4, 5), x[0], y[0])
+    # an explicit CPU request runs
+    sch = solve(cfg, "adam", steps=2, device="cpu")
+    assert np.isfinite(sch.objective)
+
+
+def test_kernel_wrappers_take_plain_path_only_on_cpu():
+    from repro_torch.kernels.adel_agg import adel_agg, adel_agg_q8
+    before = (adel_agg.launches, adel_agg_q8.launches)
+    g = torch.ones(2, 1, 4)
+    c = torch.ones(2, 1)
+    assert torch.equal(adel_agg(g, c), torch.full((1, 4), 2.0))
+    q = torch.ones(2, 1, 4, dtype=torch.int8)
+    assert torch.equal(adel_agg_q8(q, c, c), torch.full((1, 4), 2.0))
+    # the plain path is not a launch
+    assert (adel_agg.launches, adel_agg_q8.launches) == before
+    # neither CPU nor CUDA: no silent fallback
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        adel_agg(g.to("meta"), c.to("meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        adel_agg_q8(q.to("meta"), c.to("meta"), c.to("meta"))

@@ -5,23 +5,36 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and both TF32 flags (set False: f32 means f32).
-2. Builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``.
-3. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (every VGG-11 leaf at U=10), a stacked and a ragged
+2. Builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
+   process per source, all started together.
+3. Holds each fold kernel against its plain PyTorch version on the card at
+   the FL path's shapes (every VGG-11 leaf at U=10), a stacked and a ragged
    case, and for ``adel_agg_q8`` a zero-coefficient row and a zero-scale
    layer; times kernel, plain version and one ``torch.einsum`` (a yardstick
    the port never calls) as CUDA-graph replays, the kernel also as eager
    calls, and computes the bandwidth bound. Then one round's fold: all 38
    VGG-11 leaves, each kernel against its plain version, timed the same way.
-4. Drives the main path at full width: ``run_federated`` on VGG-11
+4. Holds the LM kernels against their plain versions the same way:
+   ``flash_attention`` at hymba-1.5b's prefill shape (bf16 and f32), at
+   yi-6b's, with a ragged S and non-causal with Sq != Sk, beside
+   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   ``ssd_scan`` at hymba-1.5b's and mamba2-370m's shapes. Bound: the larger
+   of bytes over HBM rate and flops over the dtype's peak.
+5. Drives the FL path at full width: ``run_federated`` on VGG-11
    (``width_scale=1.0``), synthetic CIFAR, U=10 Dirichlet(0.5) clients, the
    ADEL policy from ``solve(cfg, "adam")``, once uncompressed and once with
-   int8 payloads; each kernel's launch count must be 38 leaves x rounds.
-   A third, uncompressed run is profiled: device busy and idle time per
-   round, the fold kernels' share, the top device kernels.
-5. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
-6. Prints the ``kernels`` JSON line (per-round fold times) and, last, the
-   ``{"ok": true, ...}`` line.
+   int8 payloads; each fold kernel's launch count must be 38 leaves x
+   rounds. A third, uncompressed run is profiled: device busy and idle time
+   per round, the fold kernels' share, the top device kernels.
+6. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
+7. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
+   (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
+   each LM kernel per prefill and finite (2, 32256) logits, then profiled;
+   ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
+   prefill (kernels) against stepping the decode path (plain) over 1152
+   tokens, past the 1024 window, at full width cut to 4 blocks in f32.
+8. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+   line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside it; any failed phase exits non-zero.
@@ -40,6 +53,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # (rtol, atol) of a kernel against its plain version: f32 sums in another
 # order; bf16 outputs may round one bf16 ulp apart (< 0.8%)
 TOL = {"f32": (1e-5, 1e-5), "bf16": (1e-2, 1e-2), "q8": (1e-5, 1e-5)}
@@ -105,10 +119,17 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * reps)
 
 
-def bound_ms(bytes_moved: float, flops: float) -> float:
-    """Least time on the card: bytes over HBM rate or f32 operations over the
-    f32 rate, whichever is larger."""
-    return 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+def bound_ms(bytes_moved: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> float:
+    """Least time on the card: bytes over HBM rate or operations over the
+    peak rate of their type (f32 by default), whichever is larger."""
+    return 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / flops_per_s)
+
+
+def bound_by(bytes_moved: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> str:
+    return ("bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / flops_per_s
+            else "operations")
 
 
 def agg_bytes(U: int, L: int, F: int, itemsize: int) -> int:
@@ -415,6 +436,279 @@ def mlp_quickstart(torch) -> float:
     return hist.accuracy[-1]
 
 
+# ---------------------------------------------------------------------------
+# the LM path: flash attention and the SSD chunk scan
+# ---------------------------------------------------------------------------
+
+# (rtol, atol) of an LM kernel against its plain version on the same CUDA
+# inputs: flash f32 sums in another order (2e-5, as the CPU parity tests
+# against the Pallas kernel); bf16 outputs at most one bf16 ulp apart
+# (< 0.8% of the value; atol 1e-3 only for values near 0); SSD f32 chunk
+# sums and exp(cumulative log-decay) in another order
+LM_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-3), "ssd": (1e-4, 1e-4)}
+# prefill (kernels) against stepping the decode path (plain), f32 at full
+# width, 4 blocks: max |difference| <= AGREE_TOL * max(1, max |logit|)
+AGREE_TOL = 1e-3
+
+
+def flash_cost(B, H, KV, Sq, Sk, hd, causal, window, itemsize):
+    """(bytes, flops) the attention needs: q, k, v read once and the output
+    written once; 4 * hd flops per visible (query, key) pair."""
+    from repro_torch.kernels.flash_attention import visible_pairs
+    nbytes = (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd) * itemsize
+    return nbytes, 4 * B * H * hd * visible_pairs(Sq, Sk, causal=causal,
+                                                   window=window)
+
+
+def ssd_cost(G, r, S, P, N, Q):
+    """(bytes, flops) the SSD chunk scan needs: xdt, la, b, c read once and
+    y written once (b, c per group, as the kernel reads them); per chunk,
+    C B^T over the Q(Q+1)/2 causal pairs once per group (b and c are shared
+    by the group's heads), and per head the decay mask (one multiply a
+    pair), the intra term over the pairs, and the inter term and the state
+    update, Q N P FMAs each; 2 flops per FMA."""
+    BH, nC = G * r, S // Q
+    nbytes = 4 * (2 * BH * S * P + BH * S + 2 * G * S * N)
+    pairs = Q * (Q + 1) // 2
+    return nbytes, (2 * G * nC * pairs * N
+                    + BH * nC * (pairs + 2 * pairs * P + 4 * Q * N * P))
+
+
+def lm_kernel_cases(torch) -> list:
+    """Each LM kernel against its plain version at the prefill's shapes and
+    the edge cases; returns one row per case."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     visible_mask)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+
+    def record(kernel, tag, dtype, shape, out, ref, fns, cost, peak, reps):
+        rtol, atol = LM_TOL[dtype]
+        err = (out.float() - ref.float()).abs()
+        ok = bool((err <= atol + rtol * ref.float().abs()).all())
+        lib = fns[2]
+        row = {"kernel": kernel, "case": tag, "dtype": dtype, "shape": shape,
+               "max_abs_err": float(err.max()), "rtol": rtol, "atol": atol,
+               "ok": ok,
+               "kernel_ms": graph_ms(torch, fns[0], reps=reps, replays=3),
+               "call_ms": call_ms(torch, fns[0], iters=reps, warmup=2),
+               "plain_ms": graph_ms(torch, fns[1], reps=2, replays=2),
+               "library_ms": None if lib is None else graph_ms(
+                   torch, lib, reps=reps, replays=3),
+               "bound_ms": bound_ms(*cost, peak),
+               "bound_by": bound_by(*cost, peak), "bytes": cost[0],
+               "flops": cost[1]}
+        lib_ms = row["library_ms"]
+        print(f"[kernel] {kernel:15s} {tag:8s} {dtype:4s} {shape} "
+              f"max_abs_err={row['max_abs_err']:.3e} tol=rtol {rtol:g}/atol "
+              f"{atol:g} kernel_ms={row['kernel_ms']:.5f} call_ms="
+              f"{row['call_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"library_ms={'null' if lib_ms is None else f'{lib_ms:.5f}'} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kernel} {tag} {dtype} {shape} disagrees: "
+                  f"{row['max_abs_err']}")
+        rows.append(row)
+
+    flash_cases = [  # tag, B, H, KV, Sq, Sk, hd, causal, window, dtypes
+        ("hymba", 2, 25, 5, 4096, 4096, 64, True, 1024, ("bf16", "f32")),
+        ("yi", 2, 32, 4, 2048, 2048, 128, True, 0, ("bf16",)),
+        ("ragged", 1, 4, 2, 1000, 1000, 64, True, 100, ("f32",)),
+        ("cross", 2, 8, 2, 512, 1000, 64, False, 0, ("f32",)),
+    ]
+    for tag, B, H, KV, Sq, Sk, hd, causal, window, dtypes in flash_cases:
+        for dtype in dtypes:
+            tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+            q = torch.randn((B, H, Sq, hd), generator=gen, device="cuda").to(tdt)
+            k = torch.randn((B, KV, Sk, hd), generator=gen, device="cuda").to(tdt)
+            v = torch.randn((B, KV, Sk, hd), generator=gen, device="cuda").to(tdt)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            check(out.shape == q.shape and out.dtype == tdt, "flash shape")
+            ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+            mask = (visible_mask(Sq, Sk, causal, window, "cuda") if window
+                    else None)
+            lib = (lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True))
+            peak = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
+            record("flash_attention", tag, dtype,
+                   f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} "
+                   f"causal={int(causal)} window={window}", out, ref,
+                   (lambda: flash_attention(q, k, v, causal=causal,
+                                            window=window),
+                    lambda: flash_attention_plain(q, k, v, causal=causal,
+                                                  window=window), lib),
+                   flash_cost(B, H, KV, Sq, Sk, hd, causal, window,
+                              q.element_size()), peak, reps=5)
+            del q, k, v, out, ref
+
+    for tag, G, r, S, P, N, Q in (("hymba", 2, 64, 4096, 50, 16, 64),
+                                  ("mamba2", 2, 32, 4096, 64, 128, 64)):
+        xdt = torch.randn((G * r, S, P), generator=gen, device="cuda")
+        la = -0.5 * torch.rand((G * r, S), generator=gen, device="cuda")
+        b = 0.3 * torch.randn((G, S, N), generator=gen, device="cuda")
+        c = 0.3 * torch.randn((G, S, N), generator=gen, device="cuda")
+        y = ssd_scan(xdt, la, b, c, chunk=Q)
+        check(y.shape == xdt.shape, "ssd shape")
+        record("ssd_scan", tag, "ssd",
+               f"B={G} heads={r} S={S} P={P} N={N} Q={Q}", y,
+               ssd_scan_plain(xdt, la, b, c, chunk=Q),
+               (lambda: ssd_scan(xdt, la, b, c, chunk=Q),
+                lambda: ssd_scan_plain(xdt, la, b, c, chunk=Q), None),
+               ssd_cost(G, r, S, P, N, Q), F32_FLOPS_PER_S, reps=5)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hymba_prefill(torch) -> dict:
+    """The LM main path at full width and depth: hymba-1.5b's 32 blocks in
+    bf16 over 2 x 4096 random prompt tokens through ``make_prefill_step``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config("hymba-1.5b")
+    B, S = 2, 4096
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = tr.init_params(gen, cfg, dtype=torch.bfloat16, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = tr.count_params(params)
+    print(f"[hymba prefill] init {n_params} params (bf16) in "
+          f"{time.perf_counter() - t0:.3f} s; L={cfg.L} d_model={cfg.d_model} "
+          f"H={cfg.n_heads} KV={cfg.n_kv} hd={cfg.head_dim} window="
+          f"{cfg.window} ssm heads={cfg.ssm_heads} P={cfg.ssm_head_dim} "
+          f"N={cfg.ssm_state} chunk={cfg.ssm_chunk}", flush=True)
+    step = make_prefill_step(cfg)
+    step(params, tokens)                                 # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = step(params, tokens)
+    torch.cuda.synchronize()
+    walls = [1e3 * (time.perf_counter() - t0)]
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    check(tuple(logits.shape) == (B, cfg.padded_vocab),
+          f"prefill logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    check(launches == {"flash_attention": cfg.L, "ssd_scan": cfg.L},
+          f"prefill launches {launches}, not {cfg.L} of each")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(params, tokens)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = sorted(walls)[1]
+    print(f"[hymba prefill] B={B} S={S} logits={tuple(logits.shape)} finite "
+          f"launches flash_attention={launches['flash_attention']} "
+          f"ssd_scan={launches['ssd_scan']} wall_ms={[round(w, 3) for w in walls]}"
+          f" median_wall_ms={wall:.3f} prefill_tok_per_s={B * S / wall * 1e3:.1f}"
+          f" peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, tokens)
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    mine = {name: sum(e.self_device_time_total for e in kernels
+                      if key in e.key) / 1e3
+            for name, key in (("flash_attention", "flash_fwd_kernel"),
+                              ("ssd_scan", "ssd_scan_kernel"))}
+    print(f"[hymba profile] one prefill: wall_ms={prof_wall:.3f} "
+          f"device_busy_ms={busy:.3f} idle_share={1 - busy / prof_wall:.4f} "
+          f"flash_ms={mine['flash_attention']:.3f} ssd_ms={mine['ssd_scan']:.3f}"
+          f" kernels_share_of_busy="
+          f"{sum(mine.values()) / max(busy, 1e-9):.4f}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[hymba profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    check(busy > 0, "the profiler saw no device time")
+    del params, tokens, logits
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_ms": wall, "kernel_ms": mine,
+            "busy_ms": busy}
+
+
+def hymba_serve(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.serve import serve
+
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    out = serve("hymba-1.5b", batch=4, prompt_len=64, new_tokens=32,
+                reduced=False, device="cuda", verbose=False)
+    gen = torch.tensor(out["generated"])
+    V = get_config("hymba-1.5b").padded_vocab
+    print(f"[hymba serve] batch=4 prompt_len=64 new_tokens=32 generated="
+          f"{tuple(gen.shape)} prompt_s={out['prefill_s']:.3f} decode_s="
+          f"{out['decode_s']:.3f} tok_per_s={out['tok_per_s']:.2f} "
+          f"launches flash_attention={flash_attention.launches} ssd_scan="
+          f"{ssd_scan.launches} (decode is plain, as in the reference) "
+          f"sample={gen[0, :8].tolist()}", flush=True)
+    check(tuple(gen.shape) == (4, 32), f"generated shape {tuple(gen.shape)}")
+    check(bool(((gen >= 0) & (gen < V)).all()), "generated token out of range")
+    check(math.isfinite(out["tok_per_s"]) and out["tok_per_s"] > 0,
+          "serve throughput not finite")
+    torch.cuda.empty_cache()
+    return out
+
+
+def hymba_agree(torch) -> float:
+    """Prefill (the kernels) against stepping the decode path (plain) over
+    the same 1152-token prompt, past the 1024-token window: full width, 4
+    blocks, f32 with TF32 off."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), L=4, dtype="float32")
+    B, S = 2, 1152
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = tr.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    pre = make_prefill_step(cfg)(params, tokens)
+    cache = tr.init_cache(cfg, B, S, device="cuda")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for pos in range(S):
+            dec, cache = tr.decode_step(params, cfg, cache, tokens[:, pos], pos)
+    torch.cuda.synchronize()
+    err = float((pre - dec).abs().max())
+    scale = max(1.0, float(dec.abs().max()))
+    print(f"[hymba agree] L=4 f32 B={B} S={S} window={cfg.window} "
+          f"max_abs_err={err:.3e} max_abs_logit={float(dec.abs().max()):.4f} "
+          f"tol={AGREE_TOL:g}*max(1,max|logit|) decode_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    check(bool(torch.isfinite(pre).all()), "agree: prefill logits not finite")
+    check(err <= AGREE_TOL * scale,
+          f"prefill and decode disagree past the window: {err}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -436,16 +730,21 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    lib = build.build("adel_agg")
-    print(f"[build] adel_agg.cu -> {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.3f} s (nvcc {' '.join(build.NVCC_FLAGS)})",
-          flush=True)
+    libs = build.build_all()
+    print(f"[build] {', '.join(f'{n}.cu -> {p.relative_to(ROOT)}' for n, p in libs.items())}"
+          f" in {time.perf_counter() - t0:.3f} s, in parallel "
+          f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
     leaf_F = vgg_leaf_features()
     rows = kernel_cases(torch, leaf_F)
     per_round = fold_round(torch, leaf_F)
+    lm_rows = lm_kernel_cases(torch)
     launches = vgg_runs(torch)
     mlp_quickstart(torch)
+    prefill = hymba_prefill(torch)
+    launches.update(prefill["launches"])
+    hymba_serve(torch)
+    hymba_agree(torch)
 
     replaces = {"adel_agg": "src/repro/kernels/adel_agg.py:34",
                 "adel_agg_q8": "src/repro/kernels/adel_agg.py:76"}
@@ -463,6 +762,23 @@ def main() -> int:
             "library_ms": rnd["library_ms"],
             "shapes": "one round's fold: 38 VGG-11 leaves at U=10, "
                       + ("f32" if name == "adel_agg" else "int8"),
+            "card": card})
+    lm_replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
+                   "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
+    for name, main_case in (("flash_attention", ("hymba", "bf16")),
+                            ("ssd_scan", ("hymba", "ssd"))):
+        mine = [r for r in lm_rows if r["kernel"] == name]
+        row = next(r for r in mine if (r["case"], r["dtype"]) == main_case)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": lm_replaces[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shapes": f"one block of the hymba-1.5b prefill: {row['shape']}"
+                      + (" bf16" if name == "flash_attention" else " f32"),
             "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Carry params between the reference's layout (numpy arrays in the JAX
 package's pytree) and the port's tensors, leaf for leaf: both packages use
-lists of per-layer dicts with HWIO conv weights, so nothing is permuted."""
+lists of per-layer dicts with HWIO conv weights for the paper models, and
+the same nested dict of stacked (L, ...) leaves for the LM, so nothing is
+permuted."""
 from __future__ import annotations
 
 from typing import Any

@@ -15,10 +15,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
-           "load_library"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "library_path",
+           "build", "build_all", "load_library"]
+
+SOURCES = ("adel_agg", "flash_attention", "ssd_scan")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -59,6 +62,13 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build every named source at once, one ``nvcc`` process each, all
+    started together; returns {name: library path}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

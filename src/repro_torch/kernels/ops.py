@@ -1,5 +1,17 @@
-"""Pytree wrappers bridging model-layout params to the Eq. 5 fold kernels
-(port of ``repro.kernels.ops.adel_aggregate_pallas``).
+"""Wrappers bridging model layouts to the kernels (port of
+``repro.kernels.ops``):
+
+* :func:`gqa_flash` — attention in the model's (B, S, H, hd) layout through
+  the flash attention kernel;
+* :func:`ssd_chunked_kernel` — the Mamba2 SSD mixer's scan in the model's
+  layout through the SSD chunk-scan kernel;
+* :func:`adel_aggregate` — the Eq. 5 fold of a params pytree through the
+  fold kernel.
+
+Like the kernel wrappers they call, each launches its kernel for CUDA
+tensors and computes the plain version for CPU tensors.
+
+The fold:
 
 Every leaf is folded in the canonical ``(U, L_leaf, F)`` layout of
 ``repro.core.compression``: a leaf whose layer id is a stacked ``(L,)``
@@ -17,11 +29,40 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.adel_agg import adel_agg
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.tree import tree_map
 
-__all__ = ["leaf_dims", "leaf_coeff_rows", "fold_leaf", "adel_aggregate"]
+__all__ = ["gqa_flash", "ssd_chunked_kernel", "leaf_dims", "leaf_coeff_rows",
+           "fold_leaf", "adel_aggregate"]
 
 PyTree = Any
+
+
+def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Model layout (B, S, H, hd) / (B, S, KV, hd) -> (B, S, H, hd)."""
+    out = flash_attention(q.transpose(1, 2).contiguous(),
+                          k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(),
+                          causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, *,
+                       chunk: int = 64) -> torch.Tensor:
+    """Model layout: x (B,S,H,P); dt (B,S,H); A (H,); b,c (B,S,N) -> y
+    (B,S,H,P) in x's dtype (the skip term stays with the caller). Pre-scales
+    ``xdt = x * dt`` and ``la = -A * dt`` in f32; ``b`` and ``c`` go to the
+    kernel per batch (G = B), not copied out per head."""
+    B, S, H, P = x.shape
+    f32 = torch.float32
+    xdt = (x.to(f32) * dt[..., None]).transpose(1, 2).reshape(B * H, S, P)
+    la = (-A[None, None, :] * dt).to(f32).transpose(1, 2).reshape(B * H, S)
+    y = ssd_scan(xdt.contiguous(), la.contiguous(), b.to(f32).contiguous(),
+                 c.to(f32).contiguous(), chunk=chunk)
+    return y.reshape(B, H, S, P).transpose(1, 2).to(x.dtype)
 
 
 def _ids_ndim(ids) -> int:

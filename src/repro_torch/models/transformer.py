@@ -1,0 +1,426 @@
+"""Layered LM backbone for the dense, hybrid and ssm families (port of
+``repro.models.transformer``).
+
+One :class:`~repro_torch.configs.base.ArchConfig` selects among:
+
+* dense  — pre-norm GQA transformer (optional QKV bias, full/half RoPE,
+  optional sliding window), SwiGLU FFN;
+* ssm    — Mamba2 SSD blocks (attention-free);
+* hybrid — parallel attention + SSD heads per block (Hymba).
+
+The moe, MLA, vlm/audio-frontend and encoder-decoder families raise
+``NotImplementedError`` naming their ROADMAP item.
+
+Params are the reference's dict of leaves, the L blocks STACKED on a leading
+axis, so they cross between the packages unchanged
+(:func:`repro_torch.convert.params_from_jax`); the blocks run as a Python
+loop over that axis. Computation is cast to ``cfg.dtype`` with float32
+softmax, norms and SSM state; params stay in their stored dtype. On CUDA
+tensors the prefill's attention is the hand-written flash attention kernel
+(``kernels/ops.py:gqa_flash``) and its SSD scan the hand-written chunk-scan
+kernel (``ops.ssd_chunked_kernel``); on CPU tensors both compute their plain
+versions. The decode path is plain PyTorch, as in the reference, and
+updates its cache in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.attention import decode_attention, rope
+from repro_torch.models.ssm import ssd_decode_step
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+__all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step",
+           "layer_ids", "count_params", "Cache", "check_supported"]
+
+_F32 = torch.float32
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not cover."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP 1.13.2)")
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP 1.13.3)")
+    if cfg.frontend != "none" or cfg.enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: vision/audio frontends and encoder-decoder stacks "
+            "are not ported yet (ROADMAP 1.13.4)")
+    if cfg.family not in ("dense", "hybrid", "ssm"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}")
+
+
+def _dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# small helpers
+# ---------------------------------------------------------------------------
+
+def _rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.to(_F32)
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * g.to(x.dtype)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as jnp's matmul: the
+    serve loop's f32 cache makes the decode's activations f32 while the
+    weights are cast to the compute dtype."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def _swiglu(h, p, cdt):
+    return _mm(F.silu(_mm(h, p["wg"].to(cdt))) * _mm(h, p["wu"].to(cdt)),
+               p["wd"].to(cdt))
+
+
+# ---------------------------------------------------------------------------
+# parameter init (stacked over L)
+# ---------------------------------------------------------------------------
+
+class _Init:
+    """Draws the params' leaves from ``gen`` on the generator's device and
+    stores them on ``device`` in ``dtype`` (matrices) or f32 (norms, SSM
+    scalars), with the reference's scales."""
+
+    def __init__(self, gen: torch.Generator, dtype, device):
+        self.gen, self.dtype, self.device = gen, dtype, device
+
+    def normal(self, shape, scale, dtype=None) -> torch.Tensor:
+        x = torch.randn(shape, generator=self.gen, device=self.gen.device)
+        return (scale * x).to(device=self.device, dtype=dtype or self.dtype)
+
+    def dense(self, shape, scale=None) -> torch.Tensor:
+        return self.normal(shape, 1.0 / math.sqrt(shape[-2])
+                           if scale is None else scale)
+
+    def full(self, shape, value, dtype=_F32) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+
+def _init_attn(init: _Init, cfg: ArchConfig, L: int) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    p = {"wq": init.dense((L, D, H * hd)),
+         "wk": init.dense((L, D, KV * hd)),
+         "wv": init.dense((L, D, KV * hd)),
+         "wo": init.dense((L, H * hd, D), scale=1.0 / math.sqrt(H * hd))}
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = init.full((L, width), 0.0, init.dtype)
+    return p
+
+
+def _init_mlp(init: _Init, cfg: ArchConfig, L: int) -> dict:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {"wg": init.dense((L, D, Fd)), "wu": init.dense((L, D, Fd)),
+            "wd": init.dense((L, Fd, D), scale=1.0 / math.sqrt(Fd))}
+
+
+def _init_ssm(init: _Init, cfg: ArchConfig, L: int) -> dict:
+    D, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * N                   # conv over (x, b, c)
+    return {
+        "in_proj": init.dense((L, D, 2 * di + 2 * N + H)),   # z, x, b, c, dt
+        "conv_w": init.normal((L, cfg.ssm_conv, conv_ch), 0.1),
+        "conv_b": init.full((L, conv_ch), 0.0, init.dtype),
+        "A_log": init.full((L, H), 0.0),                      # softplus -> ~0.69
+        "skip_D": init.full((L, H), 1.0),
+        "dt_bias": init.full((L, H), 0.0),
+        "norm_g": init.full((L, di), 1.0),
+        "out_proj": init.dense((L, di, D), scale=1.0 / math.sqrt(di)),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, *,
+                dtype: torch.dtype | str = torch.float32,
+                device=None) -> PyTree:
+    """Full model params, blocks stacked over the leading L axis: the
+    reference's structure, shapes and scales. Values are drawn from ``gen``
+    on its own device (a CUDA generator for full width: drawing 1.6 B values
+    on the CPU takes tens of seconds) and stored on ``device`` (the card
+    unless the caller asks for another)."""
+    check_supported(cfg)
+    init = _Init(gen, _dtype(dtype), resolve_device(device))
+    L, V, D = cfg.L, cfg.padded_vocab, cfg.d_model
+    blocks: dict = {"norm1": init.full((L, D), 1.0)}
+    if cfg.has_attention:
+        blocks["attn"] = _init_attn(init, cfg, L)
+    if cfg.has_ssm:
+        blocks["ssm"] = _init_ssm(init, cfg, L)
+        if cfg.family == "hybrid":
+            blocks["fuse_na"] = init.full((L, D), 1.0)
+            blocks["fuse_ns"] = init.full((L, D), 1.0)
+    if cfg.family != "ssm":
+        blocks["norm2"] = init.full((L, D), 1.0)
+        blocks["mlp"] = _init_mlp(init, cfg, L)
+    params = {"embed": init.normal((V, D), 0.02), "blocks": blocks,
+              "final_norm": init.full((D,), 1.0)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init.normal((D, V), 0.02)
+    return params
+
+
+def count_params(params: PyTree) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def _block(blocks: dict, l: int) -> dict:
+    """Block ``l``'s params: a view of every stacked leaf at index l."""
+    return {k: _block(v, l) if isinstance(v, dict) else v[l]
+            for k, v in blocks.items()}
+
+
+def _head(params: PyTree, cfg: ArchConfig, cdt) -> torch.Tensor:
+    return (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# block forward (full sequence: prefill)
+# ---------------------------------------------------------------------------
+
+def _qkv(p, cfg: ArchConfig, h, cdt):
+    B, S, _ = h.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = _mm(h, p["wq"].to(cdt))
+    k = _mm(h, p["wk"].to(cdt))
+    v = _mm(h, p["wv"].to(cdt))
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
+
+
+def _attn_forward(p, cfg: ArchConfig, h, positions, cdt):
+    """Causal GQA over the full sequence. h: (B, S, D)."""
+    B, S, _ = h.shape
+    q, k, v = _qkv(p, cfg, h, cdt)
+    if cfg.rope_mode != "none":
+        q = rope(q, positions, mode=cfg.rope_mode, theta=cfg.rope_theta)
+        k = rope(k, positions, mode=cfg.rope_mode, theta=cfg.rope_theta)
+    out = ops.gqa_flash(q, k, v, causal=True, window=cfg.window)
+    return out.reshape(B, S, -1) @ p["wo"].to(cdt)
+
+
+def _ssm_split(p, cfg: ArchConfig, h, cdt):
+    """in_proj + split. h (B,S,D) -> z (B,S,di), xbc (B,S,di+2N), dt (B,S,H)."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    zxbcdt = _mm(h, p["in_proj"].to(cdt))
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:2 * di + 2 * N]
+    dt = F.softplus(zxbcdt[..., 2 * di + 2 * N:].to(_F32) + p["dt_bias"])
+    return z, xbc, dt
+
+
+def _ssm_forward(p, cfg: ArchConfig, h, cdt):
+    """Mamba2 SSD mixer (full sequence). h: (B, S, D) -> (B, S, D)."""
+    B, S, _ = h.shape
+    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc, dt = _ssm_split(p, cfg, h, cdt)
+    # depthwise causal conv over the sequence (width cfg.ssm_conv), zeros
+    # in front
+    W = cfg.ssm_conv
+    w = p["conv_w"].to(cdt)                                   # (W, C)
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    conv = sum(pad[:, i:i + S, :] * w[i] for i in range(W))
+    xbc = F.silu(conv + p["conv_b"].to(cdt))
+    x = xbc[..., :di].reshape(B, S, Hs, P)
+    b = xbc[..., di:di + N]
+    c = xbc[..., di + N:]
+    A = F.softplus(p["A_log"])
+    Q = cfg.ssm_chunk
+    padS = -S % Q                                             # to a chunk multiple
+    xs, dts, bs, cs = x, dt, b, c
+    if padS:
+        xs = F.pad(x, (0, 0, 0, 0, 0, padS))
+        dts = F.pad(dt, (0, 0, 0, padS))
+        bs = F.pad(b, (0, 0, 0, padS))
+        cs = F.pad(c, (0, 0, 0, padS))
+    y = ops.ssd_chunked_kernel(xs, dts, A, bs, cs, chunk=Q)[:, :S]
+    y = y + p["skip_D"].to(cdt)[None, None, :, None] * x
+    y = y.reshape(B, S, di)
+    y = _rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
+    return y @ p["out_proj"].to(cdt)
+
+
+def _block_forward(p, cfg: ArchConfig, h, positions, cdt):
+    """One decoder block, full sequence."""
+    x = _rms_norm(h, p["norm1"], cfg.norm_eps)
+    if cfg.family == "hybrid":
+        a = _attn_forward(p["attn"], cfg, x, positions, cdt)
+        s = _ssm_forward(p["ssm"], cfg, x, cdt)
+        h = h + 0.5 * (_rms_norm(a, p["fuse_na"], cfg.norm_eps)
+                       + _rms_norm(s, p["fuse_ns"], cfg.norm_eps))
+    elif cfg.family == "ssm":
+        return h + _ssm_forward(p["ssm"], cfg, x, cdt)  # Mamba block: no FFN
+    else:
+        h = h + _attn_forward(p["attn"], cfg, x, positions, cdt)
+    x2 = _rms_norm(h, p["norm2"], cfg.norm_eps)
+    return h + _swiglu(x2, p["mlp"], cdt)
+
+
+def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Logits (B, S, V) for a full sequence of tokens (B, S)."""
+    check_supported(cfg)
+    cdt = _dtype(cfg.dtype)
+    h = params["embed"].to(cdt)[tokens]
+    positions = torch.arange(h.shape[1], device=h.device)
+    for l in range(cfg.L):
+        h = _block_forward(_block(params["blocks"], l), cfg, h, positions, cdt)
+    h = _rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return h @ _head(params, cfg, cdt)
+
+
+def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Prefill: full-sequence forward returning last-position logits (B, V).
+
+    (As in the reference, the serve loop fills its cache through
+    :func:`decode_step`; the prefill is the batched forward's compute.)
+    """
+    return forward(params, cfg, tokens)[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# KV / SSM / conv caches + decode
+# ---------------------------------------------------------------------------
+
+class Cache(NamedTuple):
+    kv: Optional[tuple] = None        # (k, v): (L, B, W_or_S, KV, hd)
+    ssm: Optional[tuple] = None       # (state (L,B,H,N,P), conv (L,B,W-1,C))
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, dtype=None,
+               device=None) -> Cache:
+    """Zero caches. A sliding-window arch keeps a rolling window of
+    W = min(window, max_seq) slots; the SSM state is f32."""
+    check_supported(cfg)
+    dtype = _dtype(dtype or cfg.dtype)
+    dev = resolve_device(device)
+    L, KV, hd = cfg.L, cfg.n_kv, cfg.head_dim
+    kv = ssm = None
+    if cfg.has_attention:
+        W = min(cfg.window, max_seq) if cfg.window else max_seq
+        kv = tuple(torch.zeros((L, batch, W, KV, hd), dtype=dtype, device=dev)
+                   for _ in range(2))
+    if cfg.has_ssm:
+        ssm = (torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_state,
+                            cfg.ssm_head_dim), dtype=_F32, device=dev),
+               torch.zeros((L, batch, cfg.ssm_conv - 1,
+                            cfg.d_inner + 2 * cfg.ssm_state), dtype=dtype,
+                           device=dev))
+    return Cache(kv=kv, ssm=ssm)
+
+
+def _attn_decode(p, cfg: ArchConfig, x, pos: int, k_c, v_c, cdt):
+    """Single-token GQA decode for one layer, x: (B, 1, D); writes this
+    token's k, v into slot ``pos % W`` (rolling window) or ``pos`` of the
+    layer's caches in place."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, cfg, x, cdt)
+    if cfg.rope_mode != "none":
+        pvec = torch.full((1,), pos, device=x.device)
+        q = rope(q, pvec, mode=cfg.rope_mode, theta=cfg.rope_theta)
+        k = rope(k, pvec, mode=cfg.rope_mode, theta=cfg.rope_theta)
+    W = k_c.shape[1]
+    slot = pos % W if cfg.window else min(pos, W - 1)
+    k_c[:, slot] = k[:, 0]
+    v_c[:, slot] = v[:, 0]
+    out = decode_attention(q, k_c, v_c, min(pos + 1, W))
+    return _mm(out.reshape(B, 1, -1), p["wo"].to(cdt))
+
+
+def _ssm_decode(p, cfg: ArchConfig, x, state, conv_hist, cdt):
+    """Single-token SSD decode for one layer, x: (B, 1, D). Updates the
+    layer's state (B,H,N,P) and conv history (B,W-1,C) in place."""
+    B = x.shape[0]
+    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc, dt = _ssm_split(p, cfg, x, cdt)                   # (B,1,·)
+    seq = torch.cat([conv_hist, xbc], dim=1)                 # (B, W, C)
+    w = p["conv_w"].to(cdt)
+    wdt = torch.promote_types(seq.dtype, cdt)
+    conv = (torch.einsum("bwc,wc->bc", seq.to(wdt), w.to(wdt))
+            + p["conv_b"].to(cdt))
+    xbc1 = F.silu(conv)
+    xh = xbc1[:, :di].reshape(B, Hs, P)
+    b = xbc1[:, di:di + N]
+    c = xbc1[:, di + N:]
+    A = F.softplus(p["A_log"])
+    y, new_state = ssd_decode_step(xh, dt[:, 0], A, b, c, state)
+    state.copy_(new_state)
+    conv_hist.copy_(seq[:, 1:])
+    y = y + p["skip_D"].to(cdt)[None, :, None] * xh
+    y = y.reshape(B, di)
+    y = _rms_norm(y * F.silu(z[:, 0]), p["norm_g"], cfg.norm_eps)
+    return _mm(y, p["out_proj"].to(cdt))[:, None, :]
+
+
+def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
+                token: torch.Tensor, pos: int):
+    """One decode step. token: (B,) int; pos: the absolute position (int).
+
+    Returns (logits (B, V) f32, cache); the cache is updated in place.
+    """
+    check_supported(cfg)
+    cdt = _dtype(cfg.dtype)
+    pos = int(pos)
+    h = params["embed"].to(cdt)[token][:, None, :]            # (B, 1, D)
+    for l in range(cfg.L):
+        p = _block(params["blocks"], l)
+        x = _rms_norm(h, p["norm1"], cfg.norm_eps)
+        if cfg.has_attention:
+            a = _attn_decode(p["attn"], cfg, x, pos, cache.kv[0][l],
+                             cache.kv[1][l], cdt)
+        if cfg.has_ssm:
+            s = _ssm_decode(p["ssm"], cfg, x, cache.ssm[0][l],
+                            cache.ssm[1][l], cdt)
+        if cfg.family == "hybrid":
+            h = h + 0.5 * (_rms_norm(a, p["fuse_na"], cfg.norm_eps)
+                           + _rms_norm(s, p["fuse_ns"], cfg.norm_eps))
+        elif cfg.family == "ssm":
+            h = h + s
+            continue
+        else:
+            h = h + a
+        h = h + _swiglu(_rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"], cdt)
+    h = _rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = _mm(h[:, 0], _head(params, cfg, cdt)).to(_F32)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# ADEL layer ids
+# ---------------------------------------------------------------------------
+
+def layer_ids(params: PyTree, cfg: ArchConfig) -> PyTree:
+    """Pytree congruent with params mapping leaves to ADEL mask layers.
+
+    Blocks get their stacked index; the embedding joins layer 0 (reached
+    last); final norm + head join the last layer (reached first).
+    """
+    last = cfg.n_blocks_total - 1
+    ids: dict = {}
+    for k, v in params.items():
+        if k == "blocks":
+            ids[k] = tree_map(lambda t: torch.arange(cfg.L, dtype=torch.int32,
+                                                     device=t.device), v)
+        elif k == "embed":
+            ids[k] = 0
+        else:  # final_norm, lm_head
+            ids[k] = last
+    return ids

@@ -178,3 +178,111 @@ def test_dense_round_fold_matches_plain_on_card(cuda, comp):
             w = leaf_coeff_rows(c, i)
             assert _close(adel_agg_q8(q, s, w), adel_agg_q8_plain(q, s, w),
                           1e-5, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels: flash attention and the SSD chunk scan
+# ---------------------------------------------------------------------------
+# flash: f32 rtol = atol = 2e-5 (f32 sums in another order, as the CPU
+# parity tests against the Pallas kernel); bf16 rtol 1e-2, atol 1e-3 (both
+# round one f32 result to bf16, one ulp apart at most, < 0.8% of the value).
+# SSD: rtol = atol = 1e-4 (f32 chunk sums, exp of the cumulative log-decay,
+# in another order).
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
+    (2, 25, 5, 1024, 1024, 64, True, 256),     # hymba heads, shorter S
+    (1, 32, 4, 512, 512, 128, True, 0),        # yi-6b heads
+    (1, 4, 2, 1000, 1000, 64, True, 100),      # ragged S
+    (2, 2, 2, 128, 300, 64, False, 0),         # non-causal, Sq != Sk
+    (1, 8, 1, 77, 77, 128, True, 0),           # MQA, S < one tile
+    (1, 2, 1, 200, 40, 64, True, 16),          # rows that see no key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd,
+                                              causal, window, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, H, Sq, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, KV, Sk, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, KV, Sk, hd), generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert _close(out, ref, **FLASH_TOL[dtype]), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.parametrize("G,r,S,P,N,chunk", [
+    (2, 64, 1024, 50, 16, 64),     # hymba-1.5b: B=2, 64 heads, P=50, N=16
+    (1, 32, 512, 64, 128, 64),     # mamba2-370m: P=64, N=128
+    (2, 3, 256, 16, 8, 128),       # a long chunk
+    (6, 1, 64, 7, 5, 16),          # per-head b, c (G = BH), odd widths
+])
+def test_ssd_scan_kernel_matches_plain(cuda, G, r, S, P, N, chunk):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    BH = G * r
+    xdt = torch.randn((BH, S, P), generator=gen, device=cuda)
+    la = -torch.rand((BH, S), generator=gen, device=cuda)
+    b = 0.3 * torch.randn((G, S, N), generator=gen, device=cuda)
+    c = 0.3 * torch.randn((G, S, N), generator=gen, device=cuda)
+    before = ssd_scan.launches
+    y = ssd_scan(xdt, la, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    ref = ssd_scan_plain(xdt, la, b, c, chunk=chunk)
+    assert _close(y, ref, **SSD_TOL), (y - ref).abs().max()
+
+
+def test_lm_kernel_wrappers_check_their_inputs(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                        q[..., :32].contiguous())
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    x = torch.zeros((2, 100, 8), device=cuda)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan(x, x[..., 0].contiguous(), x, x, chunk=64)
+    big = torch.zeros((1, 256, 256), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan(big, big[..., 0].contiguous(), big, big, chunk=256)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m", "yi-6b"])
+def test_prefill_on_card_matches_cpu(cuda, arch):
+    """A reduced model's prefill on the card (the kernels, one launch of
+    each per block) against the same prefill on the CPU (their plain
+    versions), f32 with TF32 off: rtol = atol = 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 200),
+                           generator=torch.Generator().manual_seed(1))
+    step = make_prefill_step(cfg)
+    ref = step(params, tokens)
+    before = (flash_attention.launches, ssd_scan.launches)
+    out = step(tree_map(lambda t: t.to(cuda), params), tokens.to(cuda))
+    torch.cuda.synchronize()
+    launched = (flash_attention.launches - before[0],
+                ssd_scan.launches - before[1])
+    assert launched == (cfg.L if cfg.has_attention else 0,
+                        cfg.L if cfg.has_ssm else 0)
+    assert _close(out.cpu(), ref, 1e-4, 1e-4), (out.cpu() - ref).abs().max()

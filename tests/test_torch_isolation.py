@@ -36,7 +36,9 @@ def test_no_jax_or_reference_import(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.fl.server, "
             "repro_torch.models.paper_models, repro_torch.core.scheduler, "
-            "repro_torch.convert; "
+            "repro_torch.convert, repro_torch.configs, "
+            "repro_torch.models.transformer, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'")
@@ -93,3 +95,45 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
         adel_agg(g.to("meta"), c.to("meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         adel_agg_q8(q.to("meta"), c.to("meta"), c.to("meta"))
+
+
+def test_lm_entry_points_default_to_the_card():
+    _cardless()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config("hymba-1.5b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve("hymba-1.5b", batch=1, prompt_len=2, new_tokens=1,
+              verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.init_cache(cfg, 1, 8)
+    # an explicit CPU request runs
+    params = tr.init_params(torch.Generator(), cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+def test_lm_kernel_wrappers_take_plain_path_only_on_cpu():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ops import gqa_flash, ssd_chunked_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    before = (flash_attention.launches, ssd_scan.launches)
+    q = torch.ones(1, 2, 8, 64)
+    # uniform scores: the output is the mean of v over the visible keys
+    assert torch.allclose(flash_attention(q, q, q), q)
+    assert gqa_flash(q, q, q).shape == q.shape
+    x = torch.zeros(2, 16, 4)
+    la, b = torch.zeros(2, 16), torch.ones(1, 16, 3)
+    assert torch.equal(ssd_scan(x, la, b, b, chunk=8), x)
+    assert ssd_chunked_kernel(torch.zeros(1, 16, 2, 4), torch.ones(1, 16, 2),
+                              torch.ones(2), b, b, chunk=8).shape == (1, 16, 2, 4)
+    # the plain path is not a launch
+    assert (flash_attention.launches, ssd_scan.launches) == before
+    # neither CPU nor CUDA: no silent fallback
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ssd_scan(x.to("meta"), la.to("meta"), b.to("meta"), b.to("meta"))

@@ -15,11 +15,15 @@
    calls, and computes the bandwidth bound. Then one round's fold: all 38
    VGG-11 leaves, each kernel against its plain version, timed the same way.
 4. Holds the LM kernels against their plain versions the same way:
-   ``flash_attention`` at hymba-1.5b's prefill shape (bf16 and f32), at
-   yi-6b's, with a ragged S and non-causal with Sq != Sk, beside
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
-   ``ssd_scan`` at hymba-1.5b's and mamba2-370m's shapes. Bound: the larger
-   of bytes over HBM rate and flops over the dtype's peak.
+   ``flash_attention`` (bf16 on the tensor cores, f32 on the CUDA cores) at
+   hymba-1.5b's prefill shape, at yi-6b's, with a ragged S, non-causal with
+   Sq != Sk and with rows that see no key, each in bf16 and f32, and
+   through ``gqa_flash`` on the model's (B, S, H, hd) tensors at hymba's
+   shape, beside ``scaled_dot_product_attention`` (a yardstick the port
+   never calls); ``ssd_scan`` at hymba-1.5b's and mamba2-370m's shapes.
+   Bound: the larger of bytes over HBM rate and flops over the dtype's
+   peak. Prints ptxas's registers and spills of the flash kernels and the
+   flash library's count of ``HGMMA`` and ``UTMALDG`` instructions.
 5. Drives the FL path at full width: ``run_federated`` on VGG-11
    (``width_scale=1.0``), synthetic CIFAR, U=10 Dirichlet(0.5) clients, the
    ADEL policy from ``solve(cfg, "adam")``, once uncompressed and once with
@@ -29,7 +33,8 @@
 6. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
 7. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
    (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
-   each LM kernel per prefill and finite (2, 32256) logits, then profiled;
+   each LM kernel per prefill and finite (2, 32256) logits, then profiled
+   (flash and SSD device time, layout copies);
    ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
    prefill (kernels) against stepping the decode path (plain) over 1152
    tokens, past the 1024 window, at full width cut to 4 blocks in f32.
@@ -43,6 +48,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -482,6 +489,7 @@ def lm_kernel_cases(torch) -> list:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
                                                      visible_mask)
+    from repro_torch.kernels.ops import gqa_flash
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -503,11 +511,13 @@ def lm_kernel_cases(torch) -> list:
                "bound_by": bound_by(*cost, peak), "bytes": cost[0],
                "flops": cost[1]}
         lib_ms = row["library_ms"]
+        ratio = None if lib_ms is None else row["kernel_ms"] / lib_ms
         print(f"[kernel] {kernel:15s} {tag:8s} {dtype:4s} {shape} "
               f"max_abs_err={row['max_abs_err']:.3e} tol=rtol {rtol:g}/atol "
               f"{atol:g} kernel_ms={row['kernel_ms']:.5f} call_ms="
               f"{row['call_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
               f"library_ms={'null' if lib_ms is None else f'{lib_ms:.5f}'} "
+              f"kernel/library={'null' if ratio is None else f'{ratio:.3f}'} "
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{kernel} {tag} {dtype} {shape} disagrees: "
@@ -517,18 +527,38 @@ def lm_kernel_cases(torch) -> list:
     flash_cases = [  # tag, B, H, KV, Sq, Sk, hd, causal, window, dtypes
         ("hymba", 2, 25, 5, 4096, 4096, 64, True, 1024, ("bf16", "f32")),
         ("yi", 2, 32, 4, 2048, 2048, 128, True, 0, ("bf16",)),
-        ("ragged", 1, 4, 2, 1000, 1000, 64, True, 100, ("f32",)),
-        ("cross", 2, 8, 2, 512, 1000, 64, False, 0, ("f32",)),
+        ("ragged", 1, 4, 2, 1000, 1000, 64, True, 100, ("bf16", "f32")),
+        ("cross", 2, 8, 2, 512, 1000, 64, False, 0, ("bf16", "f32")),
+        ("nokey", 1, 2, 1, 200, 40, 64, True, 16, ("bf16", "f32")),
+        # gqa_flash on the model's (B, S, H, hd) tensors, read through strides
+        ("model", 2, 25, 5, 4096, 4096, 64, True, 1024, ("bf16",)),
     ]
     for tag, B, H, KV, Sq, Sk, hd, causal, window, dtypes in flash_cases:
         for dtype in dtypes:
             tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
-            q = torch.randn((B, H, Sq, hd), generator=gen, device="cuda").to(tdt)
-            k = torch.randn((B, KV, Sk, hd), generator=gen, device="cuda").to(tdt)
-            v = torch.randn((B, KV, Sk, hd), generator=gen, device="cuda").to(tdt)
-            out = flash_attention(q, k, v, causal=causal, window=window)
+
+            def make(heads, S):
+                if tag != "model":
+                    return torch.randn((B, heads, S, hd), generator=gen,
+                                       device="cuda").to(tdt)
+                return torch.randn((B, S, heads, hd), generator=gen,
+                                   device="cuda").to(tdt).transpose(1, 2)
+
+            q, k, v = make(H, Sq), make(KV, Sk), make(KV, Sk)
+            if tag == "model":
+                qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+                run = (lambda: gqa_flash(qs, ks, vs, causal=causal,
+                                         window=window).transpose(1, 2))
+            else:
+                run = (lambda: flash_attention(q, k, v, causal=causal,
+                                               window=window))
+            out = run()
             check(out.shape == q.shape and out.dtype == tdt, "flash shape")
+            check(out.stride() == q.stride(), "flash output not in q's layout")
             ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+            if tag == "nokey":
+                check(bool((out[:, :, Sk + window - 1:] == 0).all()),
+                      "a row with no visible key is not 0")
             mask = (visible_mask(Sq, Sk, causal, window, "cuda") if window
                     else None)
             lib = (lambda: F.scaled_dot_product_attention(
@@ -537,11 +567,10 @@ def lm_kernel_cases(torch) -> list:
             peak = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
             record("flash_attention", tag, dtype,
                    f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} "
-                   f"causal={int(causal)} window={window}", out, ref,
-                   (lambda: flash_attention(q, k, v, causal=causal,
-                                            window=window),
-                    lambda: flash_attention_plain(q, k, v, causal=causal,
-                                                  window=window), lib),
+                   f"causal={int(causal)} window={window}"
+                   + (" (B,S,H,hd) views" if tag == "model" else ""), out, ref,
+                   (run, lambda: flash_attention_plain(q, k, v, causal=causal,
+                                                       window=window), lib),
                    flash_cost(B, H, KV, Sq, Sk, hd, causal, window,
                               q.element_size()), peak, reps=5)
             del q, k, v, out, ref
@@ -562,6 +591,31 @@ def lm_kernel_cases(torch) -> list:
                ssd_cost(G, r, S, P, N, Q), F32_FLOPS_PER_S, reps=5)
     torch.cuda.empty_cache()
     return rows
+
+
+def flash_build_report() -> None:
+    """Informational, not a check: ptxas's registers and spills of each
+    flash kernel, and the count of tensor-core (``HGMMA``) and TMA-load
+    (``UTMALDG``) instructions in the flash library's SASS."""
+    from repro_torch.kernels import build
+    report = build.ptxas_report("flash_attention")
+    kernel = None
+    text = report.read_text() if report.is_file() else "no ptxas report"
+    for line in text.splitlines():
+        found = re.search(r"(flash_fwd_kernel(?:_tc)?)ILi(\d+)E", line)
+        if "Compiling entry function" in line and found:
+            kernel = f"{found[1]}<hd {found[2]}>"
+        elif kernel and ("spill" in line or "registers" in line):
+            print(f"[flash build] {kernel}: {line.strip()}", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        print("[flash build] cuobjdump not found", flush=True)
+        return
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    print(f"[flash build] SASS of the flash library: HGMMA="
+          f"{sass.count('HGMMA')} UTMALDG={sass.count('UTMALDG')}", flush=True)
 
 
 def hymba_prefill(torch) -> dict:
@@ -628,15 +682,20 @@ def hymba_prefill(torch) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    # "flash_fwd_kernel" matches both flash kernels (bf16: ..._tc)
     mine = {name: sum(e.self_device_time_total for e in kernels
                       if key in e.key) / 1e3
             for name, key in (("flash_attention", "flash_fwd_kernel"),
                               ("ssd_scan", "ssd_scan_kernel"))}
+    copies = [e for e in kernels if "direct_copy" in e.key]
+    n_copies = sum(e.count for e in copies)
+    copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
     print(f"[hymba profile] one prefill: wall_ms={prof_wall:.3f} "
           f"device_busy_ms={busy:.3f} idle_share={1 - busy / prof_wall:.4f} "
           f"flash_ms={mine['flash_attention']:.3f} ssd_ms={mine['ssd_scan']:.3f}"
           f" kernels_share_of_busy="
-          f"{sum(mine.values()) / max(busy, 1e-9):.4f}", flush=True)
+          f"{sum(mine.values()) / max(busy, 1e-9):.4f} direct_copy "
+          f"launches={n_copies} ms={copy_ms:.3f}", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[hymba profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
@@ -644,7 +703,7 @@ def hymba_prefill(torch) -> dict:
     del params, tokens, logits
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_ms": wall, "kernel_ms": mine,
-            "busy_ms": busy}
+            "busy_ms": busy, "direct_copy_launches": n_copies}
 
 
 def hymba_serve(torch) -> dict:
@@ -734,6 +793,7 @@ def main() -> int:
     print(f"[build] {', '.join(f'{n}.cu -> {p.relative_to(ROOT)}' for n, p in libs.items())}"
           f" in {time.perf_counter() - t0:.3f} s, in parallel "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
+    flash_build_report()
 
     leaf_F = vgg_leaf_features()
     rows = kernel_cases(torch, leaf_F)
@@ -780,6 +840,10 @@ def main() -> int:
             "shapes": f"one block of the hymba-1.5b prefill: {row['shape']}"
                       + (" bf16" if name == "flash_attention" else " f32"),
             "card": card})
+        if name == "flash_attention":
+            yi = next(r for r in mine if (r["case"], r["dtype"]) == ("yi", "bf16"))
+            kernels[-1].update(yi6b_ms=yi["kernel_ms"],
+                               yi6b_library_ms=yi["library_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

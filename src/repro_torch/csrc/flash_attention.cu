@@ -5,53 +5,75 @@
 //                     * v[b, h / G, j, :]
 //   q (B, H, Sq, hd), k and v (B, KV, Sk, hd), H = KV * G, f32 or bf16,
 //   hd 64 or 128; out (B, H, Sq, hd) in q's dtype; scale = hd^-0.5.
+//   Each tensor is read (out written) through its strides: unit stride on
+//   hd, the other strides and the base 16-byte aligned, so the model's
+//   (B, S, H, hd) layout is taken as it is, with no copy.
 //   Causal (key j <= query i) and/or a sliding window (j > i - window),
 //   positions counted from 0 in both sequences; a masked score is excluded
 //   exactly, and a row with no visible key gives 0 (the Pallas kernel's
 //   acc / max(l, 1e-30)).
 //   Replaces repro/kernels/flash_attention.py:flash_attention.
 //
-// Bound: at hymba-1.5b's prefill (S 4096, window 1024, hd 64) the work is
-// 4 * hd flops per visible (query, key) pair against 2 * hd elements of q
-// and out per row, so it is bound by operations, not bytes. This first
-// kernel does its arithmetic in f32 on the CUDA cores (67 TFLOP/s peak),
-// not on the tensor cores (989 TFLOP/s bf16), so it stays far from the
-// bound; wgmma with TMA-fed tiles is the later step.
+// Bound: 4 * hd flops per visible (query, key) pair against 2 * hd
+// elements of q and out per row, so on an H100 the work is bound by
+// operations: in bf16 by the tensor cores (989 TFLOP/s), in f32 by the
+// CUDA cores (67 TFLOP/s). The dtype picks the kernel; neither stands in
+// for the other.
 //
-// Design, one block of 256 threads per (64-row q tile, head, batch):
-//   * the q tile sits in shared memory as f32; the KV head is h / G,
-//     indexed in place, never copied out per head;
-//   * the loop over 64-key tiles starts at the window's first tile and
-//     stops at the causal frontier, so tiles with no visible key are never
-//     read (the Pallas grid visits and masks them);
-//   * scores: each thread owns a 4 x 4 register tile (4 query rows, 4 keys
-//     strided by 16), two loads per four FMAs; K rows are padded to hd + 1
-//     floats so the 16 keys a warp reads sit in 16 banks;
-//   * online softmax in f32 per row (m, l in shared memory, four threads a
-//     row with warp shuffles), then O += P V with each thread owning 4 rows
-//     x hd / 16 columns of the f32 accumulator in registers;
-//   * any Sq and Sk: rows and keys past the end of the tile are zero-filled
-//     on load, masked in the scores, and not stored.
+// bf16: flash_fwd_kernel_tc, tensor cores fed by TMA.
+//   * one block per (128-row q tile, head, batch) of 3 warpgroups: warp 0
+//     of warpgroup 0 issues the TMA loads (cp.async.bulk.tensor, 128-byte
+//     swizzle; the Q tile once, K and V tiles into a ring of kStages
+//     stages with full/empty mbarriers), warpgroups 1 and 2 each own 64 q
+//     rows; setmaxnreg moves registers from the producer to them;
+//   * the tensor maps are 4-D (hd, S, heads, B) over the caller's strides,
+//     built on the host by cuTensorMapEncodeTiled, reached through the
+//     runtime's driver entry point (no -lcuda), passed as
+//     __grid_constant__ parameters; TMA zero-fills rows and keys past Sq
+//     and Sk, and hd 128 loads as two 64-column boxes;
+//   * S = Q K^T on wgmma (bf16 in, f32 accumulate, both operands K-major
+//     in shared memory); the online softmax runs on the accumulator
+//     fragment in registers (row max and sum over the 4 threads of a row
+//     by shuffles, exp2f with scale * log2(e) folded in, m and l per row
+//     in registers) and masks only the tiles that need it (the window's
+//     first tile, the causal diagonal, the ragged end of Sk);
+//   * O += P V on wgmma with P from registers and V MN-major in shared
+//     memory (the transpose-B flag). P is split into P_hi = bf16(P) and
+//     P_lo = bf16(P - P_hi), two wgmmas: one bf16 P puts a few outputs
+//     per million past the check of one bf16 ulp against the f32 plain
+//     version (rtol 1e-2, atol 1e-3), hi + lo none;
+//   * the KV loop runs from the window's first tile to the causal
+//     frontier; with a causal mask and no window the q tiles with the most
+//     KV tiles are launched first;
+//   * the epilogue divides by max(l, 1e-30) and stores bf16 pairs, rows
+//     past Sq skipped.
+//
+// f32: flash_fwd_kernel, CUDA cores, one block of 256 threads per (64-row
+// q tile, head, batch): Q, K, V tiles in shared memory as f32, each thread
+// a 4 x 4 register tile of scores (K rows padded to hd + 1 floats), online
+// softmax with m, l in shared memory, O in registers; rows and keys past
+// the end zero-filled on load, masked in the scores, not stored.
 
 #include <cstdint>
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
+// element strides of a (B, heads, S, hd) tensor; hd has unit stride
+struct Strides {
+  int64_t b, h, s;
+};
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
 constexpr int BQ = 64;              // query rows per block
 constexpr int BK = 64;              // keys per tile
 constexpr int PS = BK + 1;          // padded row stride of the P tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);       // round to nearest even, as torch's .to()
-}
 
 template <int HD>
 constexpr int smem_floats() {
@@ -59,10 +81,11 @@ constexpr int smem_floats() {
   return BQ * HD + BK * (HD + 1) + BK * HD + BQ * PS + 3 * BQ;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KV,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 Strides sq, Strides sk, Strides sv, Strides so, int H, int KV,
                  int Sq, int Sk, int causal, int window, float scale) {
   extern __shared__ float sm[];
   float* sQ = sm;
@@ -78,14 +101,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const T* qb = q + (int64_t)(b * H + h) * Sq * HD;
-  const T* kb = k + (int64_t)(b * KV + kvh) * Sk * HD;
-  const T* vb = v + (int64_t)(b * KV + kvh) * Sk * HD;
-  T* ob = o + (int64_t)(b * H + h) * Sq * HD;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
-  for (int idx = tid; idx < BQ * HD; idx += kThreads) {
-    const int r = idx / HD;
-    sQ[idx] = (q0 + r < Sq) ? to_f32(qb[(int64_t)q0 * HD + idx]) : 0.f;
+  // loads: thread tid takes column tid % HD of rows tid / HD + i * RS
+  constexpr int RS = kThreads / HD;
+  const int ld_d = tid % HD, ld_r = tid / HD;
+  {
+    const float* src = qb + (q0 + ld_r) * sq.s + ld_d;
+    for (int r = ld_r; r < BQ; r += RS, src += RS * sq.s)
+      sQ[r * HD + ld_d] = (q0 + r < Sq) ? *src : 0.f;
   }
   if (tid < BQ) {
     sM[tid] = -1e30f;
@@ -108,12 +135,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = (k_lo / BK) * BK; kt < k_hi; kt += BK) {
     __syncthreads();                // the previous tile's readers are done
-    for (int idx = tid; idx < BK * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx % HD;
+    const float* ks = kb + (kt + ld_r) * sk.s + ld_d;
+    const float* vs = vb + (kt + ld_r) * sv.s + ld_d;
+    for (int r = ld_r; r < BK; r += RS, ks += RS * sk.s, vs += RS * sv.s) {
       const bool in = kt + r < Sk;
-      const int64_t g = (int64_t)kt * HD + idx;
-      sK[r * (HD + 1) + d] = in ? to_f32(kb[g]) : 0.f;
-      sV[idx] = in ? to_f32(vb[g]) : 0.f;
+      sK[r * (HD + 1) + ld_d] = in ? *ks : 0.f;
+      sV[r * HD + ld_d] = in ? *vs : 0.f;
     }
     __syncthreads();
 
@@ -207,53 +234,527 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty * 4 + i;
     if (q0 + r >= Sq) continue;
     const float l = fmaxf(sL[r], 1e-30f);
-    T* dst = ob + (int64_t)(q0 + r) * HD;
+    float* dst = ob + (q0 + r) * so.s;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dst[tx + 16 * c] = from_f32<T>(acc[i][c] / l);
+    for (int c = 0; c < NC; ++c) dst[tx + 16 * c] = acc[i][c] / l;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Sk, int causal, int window, float scale,
-           cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const Strides* st, int B, int H, int KV, int Sq, int Sk,
+               int causal, int window, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Sk, causal,
-      window, scale);
+  flash_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
+      st[2], st[3], H, KV, Sq, Sk, causal, window, scale);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kConsumers = 2;               // warpgroups of 64 q rows each
+constexpr int BQ = 64 * kConsumers;         // q rows per block
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int BKT = 128;                    // keys per K/V tile (hd 64 and 128)
+constexpr int kStages = 2;                  // K/V ring depth
+constexpr int kBox = 64;                    // hd columns per TMA box (128 B)
+
+// One tile is HD / 64 boxes of [rows][64] bf16, each row 128 bytes, laid
+// out by TMA with the 128-byte swizzle (1024-byte atoms of 8 rows).
+template <int HD>
+struct Smem {
+  bf16 q[BQ * HD];
+  bf16 k[kStages][BKT * HD];
+  bf16 v[kStages][BKT * HD];
+  uint64_t q_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// TMA: box of the 4-D map at (c0 = hd column, c1 = row, c2 = head, c3 = batch)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keep the compiler from moving accumulator registers across wgmma issue
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S (64 x 128, f32) += A (64 x 16, shared) B (128 x 16, shared), both
+// K-major; scale_d 0 overwrites S
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// O (64 x N, f32) += A (64 x 16, registers) B (16 x N, shared, MN-major:
+// the transpose-B flag), N = 64 or 128
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    bf16* __restrict__ o, Strides so, int H, int KV, int Sq,
+                    int Sk, int causal, int window, float scale_log2) {
+  constexpr int NB = HD / kBox;             // boxes per row of a tile
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle wants 1024-byte aligned tiles
+  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nq = gridDim.z;
+  // causal, no window: the q tiles with the most KV tiles go first
+  const int qt = (causal && window == 0) ? nq - 1 - (int)blockIdx.z
+                                         : (int)blockIdx.z;
+  const int q0 = qt * BQ;
+  const int kvh = h / (H / KV);
+
+  // KV tiles any row of this block can see: [t_lo, t_hi)
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int t_lo = k_lo / BKT;
+  const int n_tiles = max(0, (k_hi + BKT - 1) / BKT - t_lo);
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.q_full, BQ * HD * sizeof(bf16));
+#pragma unroll
+      for (int bx = 0; bx < NB; ++bx)
+        tma_load(sm.q + bx * BQ * kBox, &tq, &sm.q_full, bx * kBox, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * BKT * HD * sizeof(bf16));
+        const int kt = (t_lo + it) * BKT;
+#pragma unroll
+        for (int bx = 0; bx < NB; ++bx) {
+          tma_load(sm.k[s] + bx * BKT * kBox, &tk, &sm.full[s], bx * kBox, kt,
+                   kvh, b);
+          tma_load(sm.v[s] + bx * BKT * kBox, &tv, &sm.full[s], bx * kBox, kt,
+                   kvh, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int r_lo = q0 + 64 * c;             // this warpgroup's rows
+    const int r_hi = r_lo + 63;
+    const int row0 = r_lo + 16 * warp + lane / 4;  // and row0 + 8
+    const int col0 = 2 * (lane % 4);
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};                   // this thread's share of the row sums
+
+    const uint32_t q_base = smem_u32(sm.q) + 64 * c * 128;
+    mbar_wait(&sm.q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int kt = (t_lo + it) * BKT;
+      mbar_wait(&sm.full[s], (it / kStages) & 1);
+      // a tile none of this warpgroup's rows can see: release it unread
+      if ((causal && kt > r_hi) || (window > 0 && kt + BKT - 1 <= r_lo - window)) {
+        mbar_arrive(&sm.empty[s]);
+        continue;
+      }
+
+      // S = Q K^T: 64 x BKT in f32, HD / 16 wgmmas
+      float sc[BKT / 2];
+      const uint32_t k_base = smem_u32(sm.k[s]);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // bytes along a 128-byte row
+        wgmma_ss(sc, desc(q_base + (kk / 4) * BQ * 128 + off, 16, 1024),
+                 desc(k_base + (kk / 4) * BKT * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // mask only where some (row, key) of this warpgroup is not visible
+      const bool need_mask = (kt + BKT > Sk) || (causal && kt + BKT - 1 > r_lo) ||
+                             (window > 0 && kt <= r_hi - window);
+      if (need_mask) {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) {
+          const int row = row0 + 8 * ((i / 2) % 2);
+          const int key = kt + 8 * (i / 4) + col0 + (i % 2);
+          bool vis = key < Sk;
+          if (causal) vis = vis && key <= row;
+          if (window > 0) vis = vis && key > row - window;
+          if (!vis) sc[i] = -INFINITY;
+        }
+      }
+
+      // online softmax on the fragment: element i is row row0 + 8 * ((i/2)%2)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BKT / 2; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      float m_use[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        // a row with nothing visible yet keeps m = -inf: exp2 against 0
+        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - m_use[r]);
+        m[r] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BKT / 2; ++i) {
+        const int r = (i / 2) % 2;
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -m_use[r]));
+        rs[r] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+      // P as bf16 hi + lo A fragments: k-step j takes elements 8j .. 8j+7
+      uint32_t ph[BKT / 4], pl[BKT / 4];
+#pragma unroll
+      for (int j = 0; j < BKT / 4; ++j) {
+        const float x = sc[2 * j], y = sc[2 * j + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+        const float2 hf = __bfloat1622float2(hi);
+        ph[j] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[j] = pack_bf16(x - hf.x, y - hf.y);
+      }
+
+      // O += P_hi V + P_lo V: V is [BKT keys][HD] (MN-major), 16 keys a step
+      const uint32_t v_base = smem_u32(sm.v[s]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BKT / 16; ++j) {
+        const uint32_t a[4] = {ph[4 * j], ph[4 * j + 1], ph[4 * j + 2], ph[4 * j + 3]};
+        wgmma_rs(acc, a, desc(v_base + j * 16 * 128, BKT * 128, 1024));
+      }
+#pragma unroll
+      for (int j = 0; j < BKT / 16; ++j) {
+        const uint32_t a[4] = {pl[4 * j], pl[4 * j + 1], pl[4 * j + 2], pl[4 * j + 3]};
+        wgmma_rs(acc, a, desc(v_base + j * 16 * 128, BKT * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&sm.empty[s]);
+    }
+
+    // epilogue: the row sums over the 4 threads of a row, then O / l
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    bf16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      bf16* dst = ob + row * so.s + col0;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D bf16 map (hd, S, heads, B) over the tensor's strides; box
+// (64, rows, 1, 1) with the 128-byte swizzle, zero fill out of bounds
+int make_map(CUtensorMap* map, const void* base, const Strides& st, int HD,
+             int S, int heads, int B, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                    const_cast<void*>(base), dims, strides, box, estr,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 10000 + (int)res;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides* st, int B, int H, int KV, int Sq, int Sk, int causal,
+           int window, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, st[0], HD, Sq, H, B, BQ);
+  if (!err) err = make_map(&tk, k, st[1], HD, Sk, KV, B, BKT);
+  if (!err) err = make_map(&tv, v, st[2], HD, Sk, KV, B, BKT);
+  if (err) return err;
+  constexpr int bytes = (int)sizeof(Smem<HD>) + 1024;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel_tc<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const float log2e = 1.4426950408889634f;
+  dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  flash_fwd_kernel_tc<HD><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), st[3], H, KV, Sq, Sk, causal, window,
+      scale * log2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). strides:
+// 12 element strides, (b, head, s) of q, k, v and out in that order.
+// Returns 0 when launched, else a cudaError_t (10000 + a CUresult when a
+// tensor map is refused).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int H, int KV, int Sq, int Sk,
                         int hd, int causal, int window, float scale,
-                        void* stream) {
+                        const int64_t* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+    return launch_f32<64>(q, k, v, o, st, B, H, KV, Sq, Sk, causal, window, scale, s);
   if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+    return launch_f32<128>(q, k, v, o, st, B, H, KV, Sq, Sk, causal, window, scale, s);
   if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+    return tc::launch<64>(q, k, v, o, st, B, H, KV, Sq, Sk, causal, window, scale, s);
   if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+    return tc::launch<128>(q, k, v, o, st, B, H, KV, Sq, Sk, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,6 +4,10 @@ Each ``csrc/*.cu`` source has a plain C interface. On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``<repo>/build/repro_torch/``,
 under a file name keyed by a hash of the source and the flags, and loaded
 with ``ctypes``. A later process finds the library and skips the build.
+``ptxas``'s report of each kernel's registers, shared memory and spills
+(``-Xptxas -v``) is kept beside the library (:func:`ptxas_report`). No
+source links ``libcuda``: the flash kernel reaches the driver's
+``cuTensorMapEncodeTiled`` through the runtime's driver entry point.
 Nothing is compiled at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -19,14 +23,14 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "library_path",
-           "build", "build_all", "load_library"]
+           "ptxas_report", "build", "build_all", "load_library"]
 
 SOURCES = ("adel_agg", "flash_attention", "ssd_scan")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -45,6 +49,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def ptxas_report(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` keeps ``ptxas -v``'s output."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists.
     The library is written under a temporary name and renamed into place,
@@ -60,6 +69,7 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    ptxas_report(name).write_text(proc.stderr)
     os.replace(tmp, out)
     return out
 

@@ -1,5 +1,5 @@
-"""GQA flash attention: a hand-written CUDA kernel for Hopper
-(``csrc/flash_attention.cu``) and its plain PyTorch version.
+"""GQA flash attention: two hand-written CUDA kernels for Hopper
+(``csrc/flash_attention.cu``) and their plain PyTorch version.
 
 :func:`flash_attention` replaces ``repro/kernels/flash_attention.py:
 flash_attention``: q (B, H, Sq, hd), k and v (B, KV, Sk, hd) with H = KV * G,
@@ -9,13 +9,16 @@ kernel it takes any Sq and Sk (the ragged tile is masked in the kernel) and
 its KV loop runs only over the tiles a q tile can see. A row with no visible
 key gives 0, as the Pallas kernel's ``acc / max(l, 1e-30)`` does.
 
-Bound on an H100 SXM: operations (4 * hd flops per visible (query, key)
-pair); the kernel computes in f32 on the CUDA cores (the source's header
-has the design).
+The dtype picks the kernel: bf16 runs on the tensor cores (``wgmma`` fed by
+TMA, P split into bf16 hi + lo parts), f32 on the CUDA cores. Both read
+q, k and v and write the output through their strides (:func:`kernel_strides`),
+so the model's (B, S, H, hd) layout needs no copy; the output takes q's
+layout. Bound on an H100 SXM: operations (4 * hd flops per visible
+(query, key) pair); the source's header has the design.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it computes :func:`flash_attention_plain`, which ``chip_smoke.py`` also
-holds the kernel against on the card. ``flash_attention.launches`` counts
+holds the kernels against on the card. ``flash_attention.launches`` counts
 the launches.
 """
 from __future__ import annotations
@@ -28,13 +31,15 @@ import torch
 from repro_torch.kernels.build import load_library
 from repro_torch.models.attention import visible_mask
 
-__all__ = ["flash_attention", "flash_attention_plain", "visible_mask",
-           "visible_pairs"]
+__all__ = ["flash_attention", "flash_attention_plain", "kernel_strides",
+           "visible_mask", "visible_pairs"]
 
 _LIB = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_GRID_YZ = 65535
+_BQ_TC = 128                     # q rows per block of the bf16 kernel (grid z)
+_ALIGN = 16                      # bytes: TMA's rule for the base and strides
 
 
 def visible_pairs(Sq: int, Sk: int, *, causal: bool = True, window: int = 0) -> int:
@@ -65,9 +70,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _kernel():
     fn = load_library(_LIB).flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_int64),
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The element strides (b, heads, s) through which the kernels read a
+    (B, heads, S, hd) tensor, or ValueError if they cannot: hd must have
+    unit stride, and the base address and every other stride must be
+    16-byte aligned (TMA's rule; the f32 kernel keeps the same one). A dim
+    of size 1 is never stepped over, so its stride is replaced by hd; a
+    broadcast (stride 0) dim is refused. No copy is made."""
+    if t.dim() != 4:
+        raise ValueError(f"expected a (B, heads, S, hd) tensor, got "
+                         f"{tuple(t.shape)}")
+    item = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"hd must have unit stride; strides {t.stride()}")
+    if t.data_ptr() % _ALIGN:
+        raise ValueError(f"base address not {_ALIGN}-byte aligned")
+    out = []
+    for d in range(3):
+        st = t.stride(d) if t.shape[d] > 1 else t.shape[3]
+        if st == 0 or (st * item) % _ALIGN:
+            raise ValueError(f"stride {st} of dim {d} is not a nonzero "
+                             f"multiple of {_ALIGN} bytes; strides "
+                             f"{t.stride()}")
+        out.append(st)
+    return tuple(out)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,17 +118,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
-    if min(B, H, Sq, Sk) < 1 or max(B, H) > _MAX_GRID_YZ or window < 0:
+    if (min(B, H, Sq, Sk) < 1 or window < 0
+            or max(B, H, -(-Sq // _BQ_TC)) > _MAX_GRID_YZ):
         raise ValueError(f"shape {tuple(q.shape)} / window {window} out of range")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, H, Sq, hd); k, v (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's dtype."""
+    """q (B, H, Sq, hd); k, v (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's dtype,
+    laid out as q is where q is dense (a (B, S, H, hd) view in, one out)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -106,10 +138,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV, Sk = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
+        strides = (ctypes.c_int64 * 12)(
+            *(s for t in (q, k, v, out) for s in kernel_strides(t)))
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq, Sk,
                         hd, int(bool(causal)), int(window), hd ** -0.5,
-                        torch.cuda.current_stream().cuda_stream)
+                        strides, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
     flash_attention.launches += 1

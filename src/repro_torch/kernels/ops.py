@@ -2,7 +2,7 @@
 ``repro.kernels.ops``):
 
 * :func:`gqa_flash` — attention in the model's (B, S, H, hd) layout through
-  the flash attention kernel;
+  the flash attention kernel, read through strides (no copies);
 * :func:`ssd_chunked_kernel` — the Mamba2 SSD mixer's scan in the model's
   layout through the SSD chunk-scan kernel;
 * :func:`adel_aggregate` — the Eq. 5 fold of a params pytree through the
@@ -41,12 +41,13 @@ PyTree = Any
 
 def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Model layout (B, S, H, hd) / (B, S, KV, hd) -> (B, S, H, hd)."""
-    out = flash_attention(q.transpose(1, 2).contiguous(),
-                          k.transpose(1, 2).contiguous(),
-                          v.transpose(1, 2).contiguous(),
-                          causal=causal, window=window)
-    return out.transpose(1, 2)
+    """Model layout (B, S, H, hd) / (B, S, KV, hd) -> (B, S, H, hd). The
+    kernel reads the (B, H, S, hd) views through their strides and writes
+    its output in q's layout, so on the card nothing is copied and the
+    caller's ``reshape(B, S, H * hd)`` is a view."""
+    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal,
+                           window=window).transpose(1, 2)
 
 
 def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -193,30 +193,58 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
-    (2, 25, 5, 1024, 1024, 64, True, 256),     # hymba heads, shorter S
-    (1, 32, 4, 512, 512, 128, True, 0),        # yi-6b heads
-    (1, 4, 2, 1000, 1000, 64, True, 100),      # ragged S
-    (2, 2, 2, 128, 300, 64, False, 0),         # non-causal, Sq != Sk
-    (1, 8, 1, 77, 77, 128, True, 0),           # MQA, S < one tile
-    (1, 2, 1, 200, 40, 64, True, 16),          # rows that see no key
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window,layout", [
+    (2, 25, 5, 1024, 1024, 64, True, 256, "bhsd"),    # hymba heads, shorter S
+    (2, 25, 5, 1024, 1024, 64, True, 256, "bshd"),    # ... as the model lays them out
+    (1, 32, 4, 512, 512, 128, True, 0, "bhsd"),       # yi-6b heads
+    (1, 4, 2, 1000, 1000, 64, True, 100, "bhsd"),     # ragged S
+    (1, 4, 2, 1000, 1000, 128, True, 0, "bshd"),      # hd 128, Sk % 128 != 0
+    (2, 2, 2, 128, 300, 64, False, 0, "bhsd"),        # non-causal, Sq != Sk
+    (1, 8, 1, 77, 77, 128, True, 0, "bhsd"),          # MQA, S < one tile
+    (1, 2, 1, 200, 40, 64, True, 16, "bhsd"),         # rows that see no key
+    (1, 4, 2, 700, 900, 128, False, 200, "bshd"),     # a window, not causal
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd,
-                                              causal, window, dtype):
+                                              causal, window, layout, dtype):
+    """``layout`` "bshd" hands the kernel (B, H, S, hd) views of (B, S, H, hd)
+    tensors, read through their strides; the output takes q's layout."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn((B, H, Sq, hd), generator=gen, device=cuda).to(dtype)
-    k = torch.randn((B, KV, Sk, hd), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((B, KV, Sk, hd), generator=gen, device=cuda).to(dtype)
+
+    def make(heads, S):
+        shape = (B, heads, S, hd) if layout == "bhsd" else (B, S, heads, hd)
+        t = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+        return t if layout == "bhsd" else t.transpose(1, 2)
+
+    q, k, v = make(H, Sq), make(KV, Sk), make(KV, Sk)
     before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert out.shape == q.shape and out.dtype == dtype
+    assert out.stride() == q.stride()
     ref = flash_attention_plain(q, k, v, causal=causal, window=window)
     assert _close(out, ref, **FLASH_TOL[dtype]), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "flash_fwd_kernel_tc"),
+                                          (torch.float32, "flash_fwd_kernel<")])
+def test_flash_dtype_picks_the_kernel(cuda, dtype, kernel):
+    """bf16 runs only the tensor-core kernel, f32 only the CUDA-core one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn((1, 4, 256, 64), device=cuda).to(dtype)
+    k = torch.randn((1, 2, 256, 64), device=cuda).to(dtype)
+    flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, k)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "flash_fwd_kernel" in e.key]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.parametrize("G,r,S,P,N,chunk", [
@@ -250,8 +278,24 @@ def test_lm_kernel_wrappers_check_their_inputs(cuda):
                         q[..., :32].contiguous())
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    # the model's (B, S, H, hd) layout is read through its strides, with
+    # no copy; an hd that is not unit-stride is refused, as is a
+    # misaligned base
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, 300, 4, 64), device=cuda).to(dtype)
+        view = x.transpose(1, 2)
+        assert torch.equal(flash_attention(view, view, view),
+                           flash_attention(view.contiguous(),
+                                           view.contiguous(),
+                                           view.contiguous()))
+        cols = torch.randn((2, 4, 64, 300), device=cuda).to(dtype)
+        with pytest.raises(ValueError, match="unit stride"):
+            flash_attention(cols.transpose(2, 3), cols.transpose(2, 3),
+                            cols.transpose(2, 3))
+        flat = torch.zeros(2 * 4 * 300 * 64 + 1, device=cuda, dtype=dtype)
+        odd = flat[1:].view(2, 4, 300, 64)
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(odd, odd, odd)
     x = torch.zeros((2, 100, 8), device=cuda)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ssd_scan(x, x[..., 0].contiguous(), x, x, chunk=64)

@@ -11,6 +11,8 @@ order), bf16 3e-2 (both round an f32 result to bf16; the Pallas kernel
 rounds its bf16 inputs' products in another order); SSD 3e-4 (the chunked
 sums against the sequential scan, in f32).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from repro.kernels.ops import ssd_chunked_pallas
 from repro.kernels.ssd_scan import ssd_scan as ref_ssd_scan
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
+                                                 kernel_strides, visible_mask,
                                                  visible_pairs)
 from repro_torch.kernels.ops import gqa_flash, ssd_chunked_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -136,6 +139,147 @@ def test_flash_plain_is_the_wrapper_on_cpu():
     assert torch.equal(flash_attention(tq, tk, tv, window=32),
                        flash_attention_plain(tq, tk, tv, window=32))
     assert flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+# ``csrc/flash_attention.cu:flash_fwd_kernel_tc`` runs only on the card. Its
+# schedule is repeated here in f32: 128-row q blocks of two 64-row
+# warpgroups, the KV loop from the window's first tile to the causal
+# frontier, tiles no row of a warpgroup sees skipped, the mask applied only
+# where the kernel applies it, keys past Sk zero (TMA's fill), the online
+# softmax with exp2 and the scale folded in, P split into bf16 hi + lo, f32
+# accumulation. It is held against the plain version at the card's bf16
+# check (rtol 1e-2, atol 1e-3: one bf16 ulp, the tolerance
+# ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` hold the kernel to).
+CARD_BF16_TOL = dict(rtol=1e-2, atol=1e-3)
+
+
+def _emulate_tc_kernel(q, k, v, *, causal, window, bk=128):
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    c = hd ** -0.5 * math.log2(math.e)
+    pad = -(-Sk // bk) * bk - Sk
+    kk = torch.nn.functional.pad(k.float(), (0, 0, 0, pad)).repeat_interleave(G, 1)
+    vv = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)).repeat_interleave(G, 1)
+    qf = q.float()
+    out = torch.zeros((B, H, Sq, hd))
+    for q0 in range(0, Sq, 128):
+        q_last = min(q0 + 128, Sq) - 1
+        k_lo = max(0, q0 - window + 1) if window else 0
+        k_hi = min(Sk, q_last + 1) if causal else Sk
+        t_lo = k_lo // bk
+        n_tiles = max(0, -(-k_hi // bk) - t_lo)
+        for r_lo in range(q0, min(q0 + 128, Sq), 64):
+            r_hi = r_lo + 63
+            rows = torch.arange(r_lo, min(r_hi + 1, Sq))
+            m = torch.full((B, H, len(rows)), -math.inf)
+            l = torch.zeros((B, H, len(rows)))
+            acc = torch.zeros((B, H, len(rows), hd))
+            for it in range(n_tiles):
+                kt = (t_lo + it) * bk
+                if (causal and kt > r_hi) or (window and kt + bk - 1 <= r_lo - window):
+                    continue
+                s = qf[:, :, rows] @ kk[:, :, kt:kt + bk].transpose(-1, -2)
+                if ((kt + bk > Sk) or (causal and kt + bk - 1 > r_lo)
+                        or (window and kt <= r_hi - window)):
+                    keys = torch.arange(kt, kt + bk)
+                    vis = (keys[None] < Sk).expand(len(rows), bk)
+                    if causal:
+                        vis = vis & (keys[None] <= rows[:, None])
+                    if window:
+                        vis = vis & (keys[None] > rows[:, None] - window)
+                    s = s.masked_fill(~vis, -math.inf)
+                m_new = torch.maximum(m, s.amax(-1) * c)
+                m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+                alpha = torch.exp2(m - m_use)
+                p = torch.exp2(s * c - m_use[..., None])
+                l = l * alpha + p.sum(-1)
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                vt = vv[:, :, kt:kt + bk]
+                acc = acc * alpha[..., None] + hi @ vt + lo @ vt
+                m = m_new
+            out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
+    (1, 25, 5, 1024, 1024, 64, True, 256),    # hymba's heads, a window
+    (1, 32, 4, 512, 512, 128, True, 0),       # yi-6b's heads, causal
+    (1, 2, 1, 200, 200, 64, True, 1),         # every row sees one key
+    (1, 2, 1, 200, 200, 128, True, 2),        # ... or two
+    (2, 2, 2, 130, 300, 64, False, 0),        # cross, ragged Sq and Sk
+    (1, 2, 1, 200, 40, 64, True, 16),         # rows that see no key
+    (1, 2, 1, 300, 400, 128, False, 50),      # a window, not causal
+])
+def test_tensor_core_schedule_matches_plain_at_card_tolerance(
+        B, H, KV, Sq, Sk, hd, causal, window):
+    (_, tq), (_, tk), (_, tv) = _qkv(B, H, KV, Sq, Sk, hd, "bfloat16", seed=7)
+    ref = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    out = _emulate_tc_kernel(tq, tk, tv, causal=causal, window=window)
+    _close(out, ref.float(), CARD_BF16_TOL)
+    if Sq > Sk:
+        assert (out[:, :, Sk + window - 1:] == 0).all()
+
+
+def test_emulated_schedule_visits_every_visible_pair():
+    """The emulation's tile range and skips, as a count: every visible
+    (row, key) pair lies in a tile the kernel's loop computes."""
+    for Sq, Sk, causal, window in [(1000, 1000, True, 100), (4096, 4096, True, 1024),
+                                   (130, 300, False, 0), (200, 40, True, 16),
+                                   (2048, 2048, True, 0), (300, 400, False, 50)]:
+        seen = torch.zeros((Sq, Sk), dtype=torch.bool)
+        for q0 in range(0, Sq, 128):
+            q_last = min(q0 + 128, Sq) - 1
+            k_lo = max(0, q0 - window + 1) if window else 0
+            k_hi = min(Sk, q_last + 1) if causal else Sk
+            for kt in range((k_lo // 128) * 128, k_hi, 128):
+                for r_lo in (q0, q0 + 64):
+                    if not ((causal and kt > r_lo + 63)
+                            or (window and kt + 127 <= r_lo - window)):
+                        seen[r_lo:r_lo + 64, kt:kt + 128] = True
+        assert not (visible_mask(Sq, Sk, causal, window) & ~seen).any()
+
+
+# ---------------------------------------------------------------------------
+# the kernels' stride rule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_strides_take_both_layouts(dtype):
+    """The kernels read (B, H, S, hd) tensors and (B, H, S, hd) views of the
+    model's (B, S, H, hd) tensors, with no copy; a size-1 dim's stride is
+    never stepped over and is replaced."""
+    B, S, H, hd = 2, 100, 25, 64
+    bshd = torch.zeros((B, S, H, hd), dtype=dtype)
+    assert kernel_strides(bshd.transpose(1, 2)) == (S * H * hd, hd, H * hd)
+    bhsd = torch.zeros((B, H, S, hd), dtype=dtype)
+    assert kernel_strides(bhsd) == (H * S * hd, S * hd, hd)
+    one = torch.zeros((1, S, 1, 128), dtype=dtype).transpose(1, 2)
+    assert kernel_strides(one) == (128, 128, 128)
+    # a head slice of a wider row keeps 16-byte aligned strides
+    wide = torch.zeros((B, S, H, 2 * hd), dtype=dtype)[..., :hd]
+    assert kernel_strides(wide.transpose(1, 2)) == (S * H * 2 * hd, 2 * hd,
+                                                   H * 2 * hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_strides_refuse_what_the_kernels_cannot_read(dtype):
+    B, S, H, hd = 2, 100, 4, 64
+    x = torch.zeros((B, S, H, hd + 4), dtype=dtype)
+    with pytest.raises(ValueError, match="unit stride"):
+        kernel_strides(torch.zeros((B, H, hd, S), dtype=dtype).transpose(2, 3))
+    if dtype == torch.bfloat16:      # rows of hd + 4 bf16: 136 bytes
+        with pytest.raises(ValueError, match="16 bytes"):
+            kernel_strides(x[..., :hd].transpose(1, 2))
+    flat = torch.zeros(B * H * S * hd + 1, dtype=dtype)
+    with pytest.raises(ValueError, match="aligned"):
+        kernel_strides(flat[1:].view(B, H, S, hd))
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernel_strides(torch.zeros((1, H, S, hd), dtype=dtype).expand(B, H, S, hd))
 
 
 # ---------------------------------------------------------------------------

@@ -12,29 +12,37 @@
    case, and for ``adel_agg_q8`` a zero-coefficient row and a zero-scale
    layer; times kernel, plain version and one ``torch.einsum`` (a yardstick
    the port never calls) as CUDA-graph replays, the kernel also as eager
-   calls, and computes the bandwidth bound. Then one round's fold: all 38
-   VGG-11 leaves, each kernel against its plain version, timed the same way.
+   calls, and computes the bandwidth bound. The grouped fold
+   (``adel_agg_grouped``) also folds a table of 70 leaves (stacked and
+   scalar layer ids, ragged F) in two launches. Then one round's fold: all
+   38 VGG-11 leaves, f32 in one grouped launch and int8 in 38
+   ``adel_agg_q8`` launches, each against its plain version, timed the same
+   way beside the 38 ``torch.einsum`` calls.
 4. Holds the LM kernels against their plain versions the same way:
    ``flash_attention`` (bf16 on the tensor cores, f32 on the CUDA cores) at
    hymba-1.5b's prefill shape, at yi-6b's, with a ragged S, non-causal with
    Sq != Sk and with rows that see no key, each in bf16 and f32, and
    through ``gqa_flash`` on the model's (B, S, H, hd) tensors at hymba's
    shape, beside ``scaled_dot_product_attention`` (a yardstick the port
-   never calls); ``ssd_scan`` at hymba-1.5b's and mamba2-370m's shapes.
+   never calls); ``ssd_scan`` (the three-phase chunk scan) at hymba-1.5b's
+   and mamba2-370m's shapes, and at hymba's read through strides from the
+   model's (B, S, H, P) layout, with each phase's device time.
    Bound: the larger of bytes over HBM rate and flops over the dtype's
-   peak. Prints ptxas's registers and spills of the flash kernels and the
+   peak. Prints ptxas's registers and spills of every kernel and the
    flash library's count of ``HGMMA`` and ``UTMALDG`` instructions.
 5. Drives the FL path at full width: ``run_federated`` on VGG-11
    (``width_scale=1.0``), synthetic CIFAR, U=10 Dirichlet(0.5) clients, the
    ADEL policy from ``solve(cfg, "adam")``, once uncompressed and once with
-   int8 payloads; each fold kernel's launch count must be 38 leaves x
-   rounds. A third, uncompressed run is profiled: device busy and idle time
-   per round, the fold kernels' share, the top device kernels.
+   int8 payloads: uncompressed, one grouped fold launch a round; int8, 38
+   ``adel_agg_q8`` launches (one a leaf) a round. A third, uncompressed run
+   is profiled: device busy and idle time per round, the fold kernels'
+   share, the top device kernels.
 6. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
 7. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
    (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
-   each LM kernel per prefill and finite (2, 32256) logits, then profiled
-   (flash and SSD device time, layout copies);
+   each LM kernel per prefill (an ``ssd_scan`` launch is one three-phase
+   scan, four kernels) and finite (2, 32256) logits, then profiled (flash
+   and SSD device time, layout copies);
    ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
    prefill (kernels) against stepping the decode path (plain) over 1152
    tokens, past the 1024 window, at full width cut to 4 blocks in f32.
@@ -240,6 +248,57 @@ def kernel_cases(torch, leaf_F: dict) -> list:
                    agg_bytes(U, L, F, g.element_size()), 2 * U * L * F)
         q8_case(tag, *quantize(torch, g32), c)
 
+    # the grouped fold: 70 leaves, two launches; stacked ids on the host
+    # (a range) and on the card, scalar ids, ragged F
+    from repro_torch.kernels.adel_agg import (MAX_LEAVES, adel_agg_grouped,
+                                              adel_agg_grouped_plain)
+    L = 40
+    spec = [(1 + k % 3, [300, 7, 4096, 1000, 8, 2048][k % 6]) for k in range(70)]
+    for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        leaves = [randn(U_MAIN, rows, F).to(tdt) for rows, F in spec]
+        ids = [k % L if rows == 1 else
+               (torch.arange(k % 7, k % 7 + rows) if k % 2 else
+                torch.randperm(L, generator=gen, device="cuda")[:rows])
+               for k, (rows, F) in enumerate(spec)]
+        c = rand(U_MAIN, L)
+        before = adel_agg_grouped.launches
+        outs = adel_agg_grouped(leaves, ids, c)
+        check(adel_agg_grouped.launches - before == -(-70 // MAX_LEAVES),
+              "the 70-leaf table did not take two grouped launches")
+        # the plain version gathers coefficient rows with the ids on the
+        # card, so that it can be captured in a CUDA graph
+        ids_dev = [i if isinstance(i, int) else i.to("cuda") for i in ids]
+        refs = adel_agg_grouped_plain(leaves, ids_dev, c)
+        n_el = sum(x.numel() for x in leaves)
+        rtol, atol = TOL[dtype]
+        err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(outs, refs))
+        ok = all(bool(((o.float() - r.float()).abs()
+                       <= atol + rtol * r.float().abs()).all())
+                 for o, r in zip(outs, refs))
+        row = {"kernel": "adel_agg", "case": "table70", "dtype": dtype,
+               "U": U_MAIN, "L": L, "F": n_el // U_MAIN,
+               "max_abs_err": err, "rtol": rtol, "atol": atol, "ok": ok,
+               "kernel_ms": graph_ms(torch, lambda: adel_agg_grouped(
+                   leaves, ids, c)),
+               "call_ms": call_ms(torch, lambda: adel_agg_grouped(
+                   leaves, ids, c)),
+               "plain_ms": graph_ms(torch, lambda: adel_agg_grouped_plain(
+                   leaves, ids_dev, c)),
+               "library_ms": None,
+               "bound_ms": bound_ms(sum(agg_bytes(U_MAIN, x.shape[1],
+                                                  x.shape[2],
+                                                  x.element_size())
+                                        for x in leaves), 2 * n_el)}
+        print(f"[kernel] adel_agg_grouped table70 {dtype:4s} leaves=70 "
+              f"launches=2 max_abs_err={err:.3e} tol=rtol {rtol:g}/atol "
+              f"{atol:g} kernel_ms={row['kernel_ms']:.5f} call_ms="
+              f"{row['call_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"bound_ms={row['bound_ms']:.5f} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"adel_agg_grouped 70-leaf table {dtype} disagrees: {err}")
+        rows.append(row)
+
     # zero-coefficient rows: those clients contribute nothing
     U, L, F = U_MAIN, 1, 73728
     q, s = quantize(torch, randn(U, L, F))
@@ -259,48 +318,63 @@ def kernel_cases(torch, leaf_F: dict) -> list:
 
 
 def fold_round(torch, leaf_F: dict) -> dict:
-    """One round's fold on the main path: all 38 VGG-11 leaves at U=10, f32
-    through ``adel_agg`` and int8 through ``adel_agg_q8``, each leaf in its
-    own launch as the runtime issues them, timed as one CUDA graph (the
-    inputs, 390 MB in f32, do not fit in the 50 MB L2)."""
-    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_plain,
+    """One round's fold on the main path: all 38 VGG-11 leaves at U=10, as
+    the runtime issues them: f32 in one ``adel_agg_grouped`` launch, each
+    leaf's weights read from the (U, 38) coefficients through its layer id;
+    int8 through ``adel_agg_q8``, one launch a leaf. Timed as one CUDA graph
+    (the inputs, 390 MB in f32, do not fit in the 50 MB L2) beside the
+    plain versions and the 38 ``torch.einsum`` calls."""
+    from repro_torch.kernels.adel_agg import (adel_agg_grouped,
+                                              adel_agg_grouped_plain,
                                               adel_agg_q8, adel_agg_q8_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    sizes = [F for F, n in leaf_F.items() for _ in range(n)]
+    coeff = torch.rand((U_MAIN, len(sizes)), generator=gen, device="cuda")
+    ids = list(range(len(sizes)))
     leaves = []
-    for F, n in leaf_F.items():
-        for _ in range(n):
-            g = torch.randn((U_MAIN, 1, F), generator=gen, device="cuda")
-            c = torch.rand((U_MAIN, 1), generator=gen, device="cuda")
-            leaves.append((g, c) + quantize(torch, g))
-    n_el = sum(g.numel() for g, *_ in leaves)
+    for k, F in enumerate(sizes):
+        g = torch.randn((U_MAIN, 1, F), generator=gen, device="cuda")
+        leaves.append((g, coeff[:, k:k + 1].contiguous()) + quantize(torch, g))
+    grads = [a[0] for a in leaves]
+    n_el = sum(g.numel() for g in grads)
     F_tot = n_el // U_MAIN
+    before = adel_agg_grouped.launches
+    outs = adel_agg_grouped(grads, ids, coeff)
+    check(adel_agg_grouped.launches - before == 1,
+          "the 38 VGG-11 leaves did not fold in one grouped launch")
+    fns = {
+        "adel_agg": (
+            lambda: adel_agg_grouped(grads, ids, coeff),
+            lambda: adel_agg_grouped_plain(grads, ids, coeff),
+            lambda: [torch.einsum("ul,ulf->lf", c, g) for g, c, *_ in leaves],
+            sum(agg_bytes(U_MAIN, 1, g.shape[2], 4) for g in grads),
+            [(o, r) for o, r in zip(outs, adel_agg_grouped_plain(
+                grads, ids, coeff))]),
+        "adel_agg_q8": (
+            lambda: [adel_agg_q8(q, s, c) for g, c, q, s in leaves],
+            lambda: [adel_agg_q8_plain(q, s, c) for g, c, q, s in leaves],
+            None,
+            sum(q8_bytes(U_MAIN, 1, g.shape[2]) for g in grads),
+            [(adel_agg_q8(q, s, c), adel_agg_q8_plain(q, s, c))
+             for g, c, q, s in leaves]),
+    }
     out = {}
-    for name, kern, plain, lib, nbytes in (
-            ("adel_agg", lambda g, c, q, s: adel_agg(g, c),
-             lambda g, c, q, s: adel_agg_plain(g, c),
-             lambda g, c, q, s: torch.einsum("ul,ulf->lf", c, g),
-             sum(agg_bytes(U_MAIN, 1, a[0].shape[2], 4) for a in leaves)),
-            ("adel_agg_q8", lambda g, c, q, s: adel_agg_q8(q, s, c),
-             lambda g, c, q, s: adel_agg_q8_plain(q, s, c), None,
-             sum(q8_bytes(U_MAIN, 1, a[0].shape[2]) for a in leaves))):
-        err = max(float((kern(*a) - plain(*a)).abs().max()) for a in leaves)
-        rnd = {"ms": graph_ms(torch, lambda: [kern(*a) for a in leaves],
-                              reps=3),
-               "call_ms": call_ms(torch, lambda: [kern(*a) for a in leaves],
-                                  iters=5, warmup=2),
-               "plain_ms": graph_ms(torch, lambda: [plain(*a) for a in leaves],
-                                    reps=3),
-               "library_ms": None if lib is None else graph_ms(
-                   torch, lambda: [lib(*a) for a in leaves], reps=3),
+    for name, (kern, plain, lib, nbytes, pairs) in fns.items():
+        err = max(float((o - r).abs().max()) for o, r in pairs)
+        rnd = {"ms": graph_ms(torch, kern, reps=3),
+               "call_ms": call_ms(torch, kern, iters=5, warmup=2),
+               "plain_ms": graph_ms(torch, plain, reps=3),
+               "library_ms": None if lib is None else graph_ms(torch, lib,
+                                                               reps=3),
                "bound_ms": bound_ms(nbytes, 2 * n_el), "max_abs_err": err,
                "bytes": nbytes}
-        print(f"[fold round] {name:11s} 38 leaves U={U_MAIN} F_total={F_tot} "
-              f"bytes={nbytes} max_abs_err={err:.3e} "
+        launches = "1 grouped launch" if name == "adel_agg" else "38 launches"
+        print(f"[fold round] {name:11s} 38 leaves ({launches}) U={U_MAIN} "
+              f"F_total={F_tot} bytes={nbytes} max_abs_err={err:.3e} "
               + " ".join(f"{k}={'null' if v is None else f'{v:.5f}'}"
                          for k, v in rnd.items()
                          if k.endswith("ms")), flush=True)
-        check(err <= 1e-5 * (1 + max(float(plain(*a).abs().max())
-                                     for a in leaves)),
+        check(err <= 1e-5 * (1 + max(float(r.abs().max()) for _, r in pairs)),
               f"{name} round fold disagrees with its plain version: {err}")
         out[name] = rnd
     return out
@@ -317,7 +391,8 @@ def vgg_runs(torch) -> dict:
     from repro_torch.data.synthetic import make_image_dataset
     from repro_torch.fl.partition import dirichlet_partition, stack_clients
     from repro_torch.fl.server import run_federated
-    from repro_torch.kernels.adel_agg import adel_agg, adel_agg_q8
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_q8)
     from repro_torch.models.paper_models import make_vgg
 
     x_tr, y_tr, x_te, y_te = make_image_dataset("cifar", seed=0)
@@ -336,7 +411,10 @@ def vgg_runs(torch) -> dict:
           f"S_max={int(schedule.batch_sizes(cfg).max())}", flush=True)
     policy = make_policy("adel", cfg, schedule=schedule, device="cuda")
     launches = {}
-    for comp, kernel in ((None, adel_agg), ("int8", adel_agg_q8)):
+    # uncompressed: one grouped launch folds a round's 38 f32 leaves; int8:
+    # one adel_agg_q8 launch a leaf
+    for comp, kernel, per_round in ((None, adel_agg_grouped, 1),
+                                    ("int8", adel_agg_q8, 38)):
         stamps = []
 
         def on_round(t, params, hist):
@@ -344,28 +422,33 @@ def vgg_runs(torch) -> dict:
             stamps.append(time.perf_counter())
 
         adel_agg.launches = 0
+        adel_agg_grouped.launches = 0
         adel_agg_q8.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, hist = run_federated(model, policy, cfg, cx, cy, counts, x_te, y_te,
                                 seed=0, eval_every=R - 1, compression=comp,
                                 on_round=on_round, device="cuda")
-        n_agg, n_q8 = adel_agg.launches, adel_agg_q8.launches
+        fired = {"adel_agg_grouped": adel_agg_grouped.launches,
+                  "adel_agg_q8": adel_agg_q8.launches,
+                  "adel_agg": adel_agg.launches}
         wall = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
         rounds = len(stamps)
         name = "none" if comp is None else comp
         print(f"[vgg11 {name}] rounds={rounds} per_round_wall_ms="
               f"{[round(w, 3) for w in wall]} (rounds {hist.rounds} include "
-              f"eval) acc={hist.accuracy} loss={hist.train_loss} "
-              f"launches adel_agg={n_agg} adel_agg_q8={n_q8}", flush=True)
+              f"eval) acc={hist.accuracy} loss={hist.train_loss} launches "
+              + " ".join(f"{k}={v}" for k, v in fired.items()), flush=True)
         check(rounds >= 2, "VGG-11 run executed fewer than 2 rounds")
         check(all(math.isfinite(v) for v in hist.accuracy + hist.train_loss),
               "VGG-11 loss or accuracy not finite")
-        own, other = (n_agg, n_q8) if comp is None else (n_q8, n_agg)
-        check(own == 38 * rounds,
-              f"{kernel.__name__} launched {own} times, not 38 x {rounds}")
-        check(other == 0, "the other fold kernel ran in this path")
-        launches[kernel.__name__] = own
+        own = fired.pop(kernel.__name__)
+        check(own == per_round * rounds,
+              f"{kernel.__name__} launched {own} times, not {per_round} x "
+              f"{rounds}")
+        check(not any(fired.values()),
+              f"another fold kernel ran in this path: {fired}")
+        launches["adel_agg" if comp is None else "adel_agg_q8"] = own
     profile_rounds(torch, model, policy, cfg, (cx, cy, counts, x_te, y_te))
     return launches
 
@@ -398,7 +481,8 @@ def profile_rounds(torch, model, policy, cfg, data) -> None:
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     fold_ms = sum(e.self_device_time_total for e in kernels
-                  if "fold_kernel" in e.key) / 1e3
+                  if "fold_kernel" in e.key or "fold_grouped_kernel" in e.key
+                  ) / 1e3
     n = R - 2
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     print(f"[vgg11 profile] rounds 2..{R - 1} ({n}): wall_ms_per_round="
@@ -575,46 +659,88 @@ def lm_kernel_cases(torch) -> list:
                               q.element_size()), peak, reps=5)
             del q, k, v, out, ref
 
+    # "model": hymba's xdt and la as (B, H, S, P) and (B, H, S) views of the
+    # model's (B, S, H, P) and (B, S, H) tensors, read through strides, y
+    # back in that layout, as ops.ssd_chunked_kernel hands them over
     for tag, G, r, S, P, N, Q in (("hymba", 2, 64, 4096, 50, 16, 64),
+                                  ("model", 2, 64, 4096, 50, 16, 64),
                                   ("mamba2", 2, 32, 4096, 64, 128, 64)):
-        xdt = torch.randn((G * r, S, P), generator=gen, device="cuda")
-        la = -0.5 * torch.rand((G * r, S), generator=gen, device="cuda")
+        if tag == "model":
+            xdt = torch.randn((G, S, r, P), generator=gen,
+                              device="cuda").transpose(1, 2)
+            la = -0.5 * torch.rand((G, S, r), generator=gen,
+                                   device="cuda").transpose(1, 2)
+        else:
+            xdt = torch.randn((G * r, S, P), generator=gen, device="cuda")
+            la = -0.5 * torch.rand((G * r, S), generator=gen, device="cuda")
         b = 0.3 * torch.randn((G, S, N), generator=gen, device="cuda")
         c = 0.3 * torch.randn((G, S, N), generator=gen, device="cuda")
         y = ssd_scan(xdt, la, b, c, chunk=Q)
-        check(y.shape == xdt.shape, "ssd shape")
+        check(y.shape == xdt.shape and y.stride() == xdt.stride(),
+              "ssd output not in xdt's shape and layout")
         record("ssd_scan", tag, "ssd",
-               f"B={G} heads={r} S={S} P={P} N={N} Q={Q}", y,
+               f"B={G} heads={r} S={S} P={P} N={N} Q={Q}"
+               + (" (B,H,S,P) views" if tag == "model" else ""), y,
                ssd_scan_plain(xdt, la, b, c, chunk=Q),
                (lambda: ssd_scan(xdt, la, b, c, chunk=Q),
                 lambda: ssd_scan_plain(xdt, la, b, c, chunk=Q), None),
                ssd_cost(G, r, S, P, N, Q), F32_FLOPS_PER_S, reps=5)
+        rows[-1]["phases_ms"] = ssd_phases(torch, lambda: ssd_scan(
+            xdt, la, b, c, chunk=Q))
+        print(f"[kernel] ssd_scan        {tag:8s} phases (device ms a call): "
+              + " ".join(f"{k}={v:.5f}" for k, v in rows[-1]["phases_ms"].items()),
+              flush=True)
     torch.cuda.empty_cache()
     return rows
 
 
-def flash_build_report() -> None:
-    """Informational, not a check: ptxas's registers and spills of each
-    flash kernel, and the count of tensor-core (``HGMMA``) and TMA-load
-    (``UTMALDG``) instructions in the flash library's SASS."""
+def ssd_phases(torch, fn, calls: int = 5) -> dict:
+    """Device time a call of each of the SSD scan's four kernels, from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        found = re.search(r"ssd_scan_(cb|states|pass|outputs)", e.key)
+        if e.device_type == DeviceType.CUDA and found:
+            out[found[1]] = (out.get(found[1], 0.0)
+                             + e.self_device_time_total / 1e3 / calls)
+    check(set(out) == {"cb", "states", "pass", "outputs"},
+          f"the SSD scan's four kernels not all seen: {sorted(out)}")
+    return out
+
+
+def build_report() -> None:
+    """Informational, not a check: ptxas's registers and spills of every
+    kernel of the three libraries (the name with its mangled template
+    arguments), and the count of tensor-core (``HGMMA``)
+    and TMA-load (``UTMALDG``) instructions in the flash library's SASS."""
     from repro_torch.kernels import build
-    report = build.ptxas_report("flash_attention")
-    kernel = None
-    text = report.read_text() if report.is_file() else "no ptxas report"
-    for line in text.splitlines():
-        found = re.search(r"(flash_fwd_kernel(?:_tc)?)ILi(\d+)E", line)
-        if "Compiling entry function" in line and found:
-            kernel = f"{found[1]}<hd {found[2]}>"
-        elif kernel and ("spill" in line or "registers" in line):
-            print(f"[flash build] {kernel}: {line.strip()}", flush=True)
+    for lib in build.SOURCES:
+        report = build.ptxas_report(lib)
+        kernel = None
+        text = report.read_text() if report.is_file() else "no ptxas report"
+        for line in text.splitlines():
+            found = re.search(r"Compiling entry function '\w*?((?:fold|flash|"
+                              r"ssd_scan)_[a-z_]*?)((?:I|E)\w*)'", line)
+            if found:   # the name and its mangled template arguments
+                kernel = found[1] + found[2].split("EEv")[0].split("Ev")[0]
+            elif kernel and ("spill" in line or "registers" in line):
+                print(f"[build] {lib}: {kernel}: {line.strip()}", flush=True)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
-        print("[flash build] cuobjdump not found", flush=True)
+        print("[build] cuobjdump not found", flush=True)
         return
     sass = subprocess.run([cuobjdump, "-sass",
                            str(build.library_path("flash_attention"))],
                           capture_output=True, text=True, timeout=120).stdout
-    print(f"[flash build] SASS of the flash library: HGMMA="
+    print(f"[build] SASS of the flash library: HGMMA="
           f"{sass.count('HGMMA')} UTMALDG={sass.count('UTMALDG')}", flush=True)
 
 
@@ -682,11 +808,13 @@ def hymba_prefill(torch) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    # "flash_fwd_kernel" matches both flash kernels (bf16: ..._tc)
+    # "flash_fwd_kernel" matches both flash kernels (bf16: ..._tc);
+    # "ssd_scan_" the four kernels of the three-phase SSD scan
     mine = {name: sum(e.self_device_time_total for e in kernels
                       if key in e.key) / 1e3
             for name, key in (("flash_attention", "flash_fwd_kernel"),
-                              ("ssd_scan", "ssd_scan_kernel"))}
+                              ("ssd_scan", "ssd_scan_"))}
+    ssd_launches = sum(e.count for e in kernels if "ssd_scan_" in e.key)
     copies = [e for e in kernels if "direct_copy" in e.key]
     n_copies = sum(e.count for e in copies)
     copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
@@ -694,16 +822,21 @@ def hymba_prefill(torch) -> dict:
           f"device_busy_ms={busy:.3f} idle_share={1 - busy / prof_wall:.4f} "
           f"flash_ms={mine['flash_attention']:.3f} ssd_ms={mine['ssd_scan']:.3f}"
           f" kernels_share_of_busy="
-          f"{sum(mine.values()) / max(busy, 1e-9):.4f} direct_copy "
-          f"launches={n_copies} ms={copy_ms:.3f}", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+          f"{sum(mine.values()) / max(busy, 1e-9):.4f} ssd_kernel_launches="
+          f"{ssd_launches} direct_copy launches={n_copies} ms={copy_ms:.3f}",
+          flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[hymba profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     check(busy > 0, "the profiler saw no device time")
+    check(ssd_launches == 4 * cfg.L,
+          f"{ssd_launches} SSD kernel launches, not 4 phases x {cfg.L} blocks")
     del params, tokens, logits
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_ms": wall, "kernel_ms": mine,
-            "busy_ms": busy, "direct_copy_launches": n_copies}
+            "busy_ms": busy, "direct_copy_launches": n_copies,
+            "tok_per_s": B * S / wall * 1e3,
+            "idle_share": 1 - busy / prof_wall}
 
 
 def hymba_serve(torch) -> dict:
@@ -793,7 +926,7 @@ def main() -> int:
     print(f"[build] {', '.join(f'{n}.cu -> {p.relative_to(ROOT)}' for n, p in libs.items())}"
           f" in {time.perf_counter() - t0:.3f} s, in parallel "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
-    flash_build_report()
+    build_report()
 
     leaf_F = vgg_leaf_features()
     rows = kernel_cases(torch, leaf_F)
@@ -821,12 +954,14 @@ def main() -> int:
             "bound_ms": rnd["bound_ms"], "bound_by": "bytes",
             "library_ms": rnd["library_ms"],
             "shapes": "one round's fold: 38 VGG-11 leaves at U=10, "
-                      + ("f32" if name == "adel_agg" else "int8"),
+                      + ("f32, one adel_agg_grouped launch"
+                         if name == "adel_agg" else "int8, 38 launches"),
             "card": card})
+    kernels[0]["entry"] = "adel_agg_grouped (fold_grouped_kernel)"
     lm_replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                    "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
     for name, main_case in (("flash_attention", ("hymba", "bf16")),
-                            ("ssd_scan", ("hymba", "ssd"))):
+                            ("ssd_scan", ("model", "ssd"))):
         mine = [r for r in lm_rows if r["kernel"] == name]
         row = next(r for r in mine if (r["case"], r["dtype"]) == main_case)
         kernels.append({
@@ -844,6 +979,12 @@ def main() -> int:
             yi = next(r for r in mine if (r["case"], r["dtype"]) == ("yi", "bf16"))
             kernels[-1].update(yi6b_ms=yi["kernel_ms"],
                                yi6b_library_ms=yi["library_ms"])
+        else:
+            m2 = next(r for r in mine if r["case"] == "mamba2")
+            kernels[-1].update(phases_ms=row["phases_ms"],
+                               mamba2_ms=m2["kernel_ms"],
+                               mamba2_plain_ms=m2["plain_ms"],
+                               mamba2_bound_ms=m2["bound_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

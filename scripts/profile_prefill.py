@@ -14,8 +14,9 @@ prompt tokens through ``make_prefill_step`` once to warm up, then:
   share, device kernel launches in all, and every copy kernel (a key with
   ``copy``) with its launches and time, then the top kernels;
 * times ``flash_attention`` alone at the prefill's shape (B 2, H 25, KV 5,
-  S 4096, hd 64, window 1024) in bf16 and f32, with CUDA events over 20
-  eager calls after 3 of warm-up.
+  S 4096, hd 64, window 1024) in bf16 and f32, and ``ssd_scan`` alone at
+  its shape (B 2, 64 heads, S 4096, P 50, N 16, contiguous inputs), with
+  CUDA events over 20 eager calls after 3 of warm-up.
 
 Prints the card's name and power limit first. Needs a CUDA device.
 """
@@ -82,9 +83,12 @@ def main() -> int:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     flash = sum(e.self_device_time_total for e in kernels
                 if "flash_fwd_kernel" in e.key) / 1e3
+    ssd = [e for e in kernels if "ssd_scan" in e.key]
     print(f"{tag} profile wall_ms={prof_wall:.3f} device_busy_ms={busy:.3f} "
           f"idle_share={1 - busy / prof_wall:.4f} launches="
-          f"{sum(e.count for e in kernels)} flash_ms={flash:.3f}", flush=True)
+          f"{sum(e.count for e in kernels)} flash_ms={flash:.3f} ssd_ms="
+          f"{sum(e.self_device_time_total for e in ssd) / 1e3:.3f} "
+          f"ssd_launches={sum(e.count for e in ssd)}", flush=True)
     for e in sorted(kernels, key=lambda e: -e.count):
         if "copy" in e.key:
             print(f"{tag}   copy x{e.count:<5d} "
@@ -110,6 +114,21 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"{tag} flash_attention hymba {dtype} "
               f"ms={start.elapsed_time(end) / 20:.5f}", flush=True)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    xdt = torch.randn((128, 4096, 50), generator=gen, device="cuda")
+    la = -0.5 * torch.rand((128, 4096), generator=gen, device="cuda")
+    b = 0.3 * torch.randn((2, 4096, 16), generator=gen, device="cuda")
+    for _ in range(3):
+        ssd_scan(xdt, la, b, b)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        ssd_scan(xdt, la, b, b)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"{tag} ssd_scan hymba ms={start.elapsed_time(end) / 20:.5f}",
+          flush=True)
     return 0
 
 

@@ -8,8 +8,9 @@ For client updates w_u^l = w^l - eta * g_u^l, Eq. (5) is equivalent to
 
 followed by w~_{t+1} = w~_t - eta g~: a masked weighted reduction over the
 client axis. Every fold here goes through the hand-written kernel
-(:func:`repro_torch.kernels.ops.fold_leaf` -> ``adel_agg``) in the
-canonical ``(U, L_leaf, F)`` layout.
+(:func:`repro_torch.kernels.ops.fold_tree` -> ``adel_agg_grouped``, one
+launch per leaf dtype on the card) in the canonical ``(U, L_leaf, F)``
+layout.
 
 Parameter->layer mapping: ``layer_ids(params)`` is a pytree congruent with
 ``params`` whose leaves are an ``int`` (the whole tensor belongs to that
@@ -22,8 +23,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels.ops import adel_aggregate, fold_leaf
-from repro_torch.tree import tree_map
+from repro_torch.kernels.ops import adel_aggregate, fold_tree
 
 __all__ = ["layer_coefficients", "weight_by_layer", "aggregate_with_coeffs",
            "aggregate_grads", "aggregate_grads_chunk", "masked_mean_grads"]
@@ -60,7 +60,7 @@ def aggregate_with_coeffs(grads: PyTree, layer_ids: PyTree,
                           coeffs: torch.Tensor) -> PyTree:
     """``agg^l = sum_u coeffs[u, l] g_u^l`` with EXPLICIT coefficients.
     grads leaves: (U,) + param.shape; coeffs: (U, L)."""
-    return tree_map(lambda g, ids: fold_leaf(g, ids, coeffs), grads, layer_ids)
+    return fold_tree(grads, layer_ids, coeffs)
 
 
 def aggregate_grads(grads: PyTree, layer_ids: PyTree, mask: torch.Tensor,

@@ -25,6 +25,27 @@
 //     whose byte length is not a multiple of 16 take the scalar path.
 // The TPU kernel's (U, block_f) MXU matvec is not carried over: a
 // contraction over U <= a few dozen is bandwidth, not matrix-unit, work.
+//
+// adel_agg_grouped folds every leaf of one dtype of a round in one launch
+// (fold_grouped_kernel; the per-leaf fold_kernel above stays the entry of
+// adel_agg and adel_agg_q8):
+//   * the leaf table (pointers, sizes, layer ids, each leaf's first block)
+//     is a __grid_constant__ kernel parameter, filled on the host and
+//     copied with the launch: no host-to-device copy a round. A table holds
+//     kMaxLeaves leaves (3,608 bytes of the 4 KB of parameters); a pytree
+//     with more leaves takes one launch per kMaxLeaves;
+//   * block b finds its leaf by a binary search of the leaves' first blocks
+//     (a prefix sum of L_leaf x feature tiles, computed on the host), then
+//     its (row, feature tile); a tile is kThreads x kVecs 16-byte vectors;
+//   * each leaf's weights are read straight from the (U, L) coefficient
+//     matrix through its layer ids (a scalar id0 + row, or an (L_leaf,)
+//     int32 vector on the device): no per-leaf gather of coefficient rows;
+//   * a thread owns kVecs vectors of a row and walks the clients kUnroll at
+//     a time, so kVecs * kUnroll 16-byte loads are in flight before its
+//     first FMA; f32 sums stay in registers; rows that are not 16-byte
+//     aligned, or whose length is not a multiple of the vector, take the
+//     scalar path (kVecs * VN elements a thread, neighbouring threads on
+//     neighbouring elements).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -131,9 +152,200 @@ int launch(const void* x, const void* coeff, const void* scales, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the grouped fold
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxLeaves = 64;   // leaves one launch's table holds
+constexpr int kVecs = 2;         // 16-byte vectors a thread owns in a row
+constexpr int kUnroll = 4;       // clients a thread loads ahead
+
+// One leaf of the table; the layout is mirrored by _FoldLeaf in
+// kernels/adel_agg.py (adel_agg_grouped_table_bytes checks the size).
+struct FoldLeaf {
+  const void* x;       // (U, rows, F), contiguous
+  void* out;           // (rows, F)
+  const int* ids;      // (rows,) layer ids on the device, or null: id0 + row
+  long long F;
+  long long tile0;     // the leaf's first block
+  int tiles;           // feature tiles a row
+  int id0;
+  int rows;
+  int vec;             // 1: x and out 16-byte aligned and F % VN == 0
+};
+
+struct FoldTable {
+  const float* coeff;  // (U, L) f32, contiguous
+  int U, L, n, pad;
+  FoldLeaf leaf[kMaxLeaves];
+};
+
+__device__ __forceinline__ void unpack16(const uint4 r, float* f, float) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void unpack16(const uint4 r, float* f, __nv_bfloat16) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);          // the lower half is first
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 pack16(const float* f, float) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ uint4 pack16(const float* f, __nv_bfloat16) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = bf16_bits(f[2 * k]) | (bf16_bits(f[2 * k + 1]) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fold_grouped_kernel(const __grid_constant__ FoldTable t) {
+  // this block's leaf: the last whose first block is <= blockIdx.x
+  const long long b = blockIdx.x;
+  int lo = 0, hi = t.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].tile0 <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  const FoldLeaf& lf = t.leaf[lo];
+  const long long local = b - lf.tile0;
+  const int row = (int)(local / lf.tiles);
+  constexpr int VN = 16 / (int)sizeof(T);
+  constexpr int E = kVecs * VN;                 // elements a thread owns
+  const long long F = lf.F;
+  const long long f0 = (local - (long long)row * lf.tiles) * (kThreads * E);
+  const long long cstride = (long long)lf.rows * F;   // between clients
+  const T* src = static_cast<const T*>(lf.x) + (long long)row * F;
+  T* dst = static_cast<T*>(lf.out) + (long long)row * F;
+  const float* w = t.coeff + (lf.ids ? lf.ids[row] : lf.id0 + row);
+  const int U = t.U;
+  const long long L = t.L;
+
+  if (lf.vec) {
+    // vector k of this thread starts at feature f0 + (k * kThreads + tid) * VN;
+    // F % VN == 0, so a vector lies wholly inside or wholly past the row
+    long long f[kVecs];
+    bool in[kVecs];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      f[k] = f0 + ((long long)k * kThreads + threadIdx.x) * VN;
+      in[k] = f[k] < F;
+    }
+    if (!in[0]) return;
+    float acc[kVecs][VN];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+#pragma unroll
+      for (int i = 0; i < VN; ++i) acc[k][i] = 0.f;
+    int u = 0;
+    for (; u + kUnroll <= U; u += kUnroll) {
+      uint4 v[kUnroll][kVecs];
+      float wu[kUnroll];
+#pragma unroll
+      for (int a = 0; a < kUnroll; ++a) {
+        wu[a] = __ldg(w + (u + a) * L);
+#pragma unroll
+        for (int k = 0; k < kVecs; ++k)
+          v[a][k] = in[k] ? __ldg(reinterpret_cast<const uint4*>(
+                                src + (u + a) * cstride + f[k]))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int a = 0; a < kUnroll; ++a)
+#pragma unroll
+        for (int k = 0; k < kVecs; ++k) {
+          float x[VN];
+          unpack16(v[a][k], x, T());
+#pragma unroll
+          for (int i = 0; i < VN; ++i) acc[k][i] = fmaf(wu[a], x[i], acc[k][i]);
+        }
+    }
+    for (; u < U; ++u) {
+      const float wu = __ldg(w + u * L);
+#pragma unroll
+      for (int k = 0; k < kVecs; ++k) {
+        if (!in[k]) continue;
+        float x[VN];
+        unpack16(__ldg(reinterpret_cast<const uint4*>(src + u * cstride + f[k])),
+                 x, T());
+#pragma unroll
+        for (int i = 0; i < VN; ++i) acc[k][i] = fmaf(wu, x[i], acc[k][i]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+      if (in[k]) *reinterpret_cast<uint4*>(dst + f[k]) = pack16(acc[k], T());
+    return;
+  }
+  // scalar path: element k of this thread is f0 + k * kThreads + tid
+  float acc[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) acc[k] = 0.f;
+  for (int u = 0; u < U; ++u) {
+    const float wu = __ldg(w + u * L);
+    const T* s = src + u * cstride;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const long long f = f0 + (long long)k * kThreads + threadIdx.x;
+      if (f < F) acc[k] = fmaf(wu, to_f32(s[f]), acc[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const long long f = f0 + (long long)k * kThreads + threadIdx.x;
+    if (f < F) dst[f] = from_f32<T>(acc[k]);
+  }
+}
+
+template <typename T>
+int launch_grouped(const FoldTable* table, long long blocks, void* stream) {
+  if (table->n < 1 || table->n > kMaxLeaves || blocks < 1 ||
+      blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  fold_grouped_kernel<T><<<(unsigned)blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(*table);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// The grouped fold of kernels/adel_agg.py:adel_agg_grouped: one launch over
+// a table of leaves of one dtype; returns a cudaError_t (0 = launched).
+int adel_agg_grouped_f32(const void* table, long long blocks, void* stream) {
+  return launch_grouped<float>(static_cast<const FoldTable*>(table), blocks,
+                               stream);
+}
+
+int adel_agg_grouped_bf16(const void* table, long long blocks, void* stream) {
+  return launch_grouped<__nv_bfloat16>(static_cast<const FoldTable*>(table),
+                                       blocks, stream);
+}
+
+// sizeof(FoldTable), kMaxLeaves and the elements of a feature tile (f32,
+// bf16), for the wrapper to check its mirror of the table against.
+long long adel_agg_grouped_table_bytes() { return (long long)sizeof(FoldTable); }
+int adel_agg_grouped_max_leaves() { return kMaxLeaves; }
+int adel_agg_grouped_tile(int itemsize) { return kThreads * kVecs * (16 / itemsize); }
+
 
 int adel_agg_f32(const void* grads, const void* coeff, void* out, int U, int L,
                  long long F, void* stream) {

@@ -16,25 +16,40 @@ coalesced loads, keep the sums in f32 registers, stage the (U,) weight
 column in shared memory, and mask the ragged F edge without a padding copy
 (the source's header has the details).
 
+:func:`adel_agg_grouped` is the fold of a round: every leaf of one dtype,
+each (U, L_leaf, F) with its layer ids, against the full (U, L) coefficient
+matrix, in one launch of ``fold_grouped_kernel`` (a launch holds
+``MAX_LEAVES`` leaves; :func:`fold_plan` is its block map). The pytree fold
+(``kernels/ops.py:fold_tree``) goes through it; the single-tensor
+:func:`adel_agg` stays the counterpart of the reference's ``adel_agg``.
+
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it computes the plain version (an einsum in f32), which is also what
 ``chip_smoke.py`` holds each kernel against on the card. Each wrapper
-counts its launches in ``.launches``.
+counts its launches in ``.launches``: ``adel_agg_grouped.launches`` counts
+the grouped launches, one per table.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.build import load_library
 
-__all__ = ["adel_agg", "adel_agg_q8", "adel_agg_plain", "adel_agg_q8_plain"]
+__all__ = ["adel_agg", "adel_agg_q8", "adel_agg_plain", "adel_agg_q8_plain",
+           "adel_agg_grouped", "adel_agg_grouped_plain", "leaf_coeff_rows",
+           "fold_plan", "fold_tile", "block_tile", "MAX_LEAVES"]
 
 _LIB = "adel_agg"
 _MAX_U = 12 * 1024            # (U,) f32 weights in 48 KB of shared memory
 _MAX_L = 65535                # grid.y
+# the grouped fold's table and tiles, as csrc/adel_agg.cu defines them
+MAX_LEAVES = 64               # leaves one launch's table holds
+FOLD_THREADS = 256            # threads a block
+FOLD_VECS = 2                 # 16-byte vectors a thread owns in a row
 
 
 def adel_agg_plain(grads: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
@@ -126,5 +141,205 @@ def adel_agg_q8(q: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the grouped fold: one launch a round
+# ---------------------------------------------------------------------------
+
+def _ids_ndim(ids) -> int:
+    return ids.dim() if isinstance(ids, torch.Tensor) else 0
+
+
+def leaf_coeff_rows(c: torch.Tensor, ids) -> torch.Tensor:
+    """The Eq. 5 coefficient rows of one leaf: (U, L_leaf), contiguous."""
+    if _ids_ndim(ids) == 0:
+        return c[:, int(ids)].unsqueeze(1).contiguous()
+    return c.index_select(1, ids.to(device=c.device, dtype=torch.long))
+
+
+def adel_agg_grouped_plain(leaves: list, ids: list,
+                           coeff: torch.Tensor) -> list:
+    """Plain PyTorch grouped fold: each leaf through :func:`adel_agg_plain`
+    with its coefficient rows gathered from ``coeff``."""
+    return [adel_agg_plain(x, leaf_coeff_rows(coeff, i).to(torch.float32))
+            for x, i in zip(leaves, ids)]
+
+
+class FoldEntry(NamedTuple):
+    """One leaf of a launch's table: its index in the caller's list, its
+    first block, and its feature tiles a row (blocks = rows x tiles)."""
+    leaf: int
+    tile0: int
+    tiles: int
+    rows: int
+
+
+def fold_tile(itemsize: int) -> int:
+    """Elements of F a block folds for one row: threads x vectors x
+    16-byte vector (2,048 f32, 4,096 bf16)."""
+    return FOLD_THREADS * FOLD_VECS * (16 // itemsize)
+
+
+def fold_plan(dims: list, itemsize: int,
+              max_leaves: int = MAX_LEAVES) -> list:
+    """The grouped fold's launches for leaves of (rows, F) ``dims``: a list
+    of (entries, blocks), one per launch of at most ``max_leaves`` leaves.
+    Leaves go largest first, so the small ones fill the last wave; a leaf
+    with no elements is left out (its output is empty). Block b of a launch
+    folds the (leaf, row, feature tile) that :func:`block_tile` gives."""
+    tile = fold_tile(itemsize)
+    work = [(rows * -(-F // tile), i) for i, (rows, F) in enumerate(dims)
+            if rows * F > 0]
+    order = [i for _, i in sorted(work, key=lambda t: (-t[0], t[1]))]
+    launches = []
+    for start in range(0, len(order), max_leaves):
+        entries, blocks = [], 0
+        for i in order[start:start + max_leaves]:
+            rows, F = dims[i]
+            tiles = -(-F // tile)
+            entries.append(FoldEntry(i, blocks, tiles, rows))
+            blocks += rows * tiles
+        launches.append((entries, blocks))
+    return launches
+
+
+def block_tile(entries: list, block: int) -> tuple:
+    """(leaf, row, feature tile) of ``block``, as the kernel finds it: a
+    binary search for the last entry whose first block is <= ``block``."""
+    lo, hi = 0, len(entries) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if entries[mid].tile0 <= block:
+            lo = mid
+        else:
+            hi = mid - 1
+    e = entries[lo]
+    row, tile = divmod(block - e.tile0, e.tiles)
+    return e.leaf, row, tile
+
+
+class _FoldLeaf(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("ids", ctypes.c_void_p), ("F", ctypes.c_longlong),
+                ("tile0", ctypes.c_longlong), ("tiles", ctypes.c_int),
+                ("id0", ctypes.c_int), ("rows", ctypes.c_int),
+                ("vec", ctypes.c_int)]
+
+
+class _FoldTable(ctypes.Structure):
+    _fields_ = [("coeff", ctypes.c_void_p), ("U", ctypes.c_int),
+                ("L", ctypes.c_int), ("n", ctypes.c_int),
+                ("pad", ctypes.c_int), ("leaf", _FoldLeaf * MAX_LEAVES)]
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_kernel(dtype: torch.dtype):
+    lib = load_library(_LIB)
+    for name, restype, want in (
+            ("adel_agg_grouped_table_bytes", ctypes.c_longlong,
+             ctypes.sizeof(_FoldTable)),
+            ("adel_agg_grouped_max_leaves", ctypes.c_int, MAX_LEAVES)):
+        getattr(lib, name).restype = restype
+        if getattr(lib, name)() != want:
+            raise RuntimeError(f"{name} of the built library is not {want}")
+    lib.adel_agg_grouped_tile.restype = ctypes.c_int
+    lib.adel_agg_grouped_tile.argtypes = [ctypes.c_int]
+    for itemsize in (2, 4):
+        if lib.adel_agg_grouped_tile(itemsize) != fold_tile(itemsize):
+            raise RuntimeError("the library's fold tile is not fold_tile()")
+    fn = (lib.adel_agg_grouped_f32 if dtype == torch.float32
+          else lib.adel_agg_grouped_bf16)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _layer_rows(ids, rows: int, L: int, device) -> tuple:
+    """(id0, ids tensor or None) of one leaf: layer of row i is
+    ``ids[i]`` if a tensor is returned, else ``id0 + i``. A scalar id or a
+    host-side range costs nothing on the device; a stacked id vector on the
+    device is read there (as int32); any other host vector is copied over."""
+    if _ids_ndim(ids) == 0:
+        i = int(ids)
+        if not 0 <= i < L or rows != 1:
+            raise ValueError(f"layer id {i} of a whole-tensor leaf outside "
+                             f"[0, {L}) or leaf rows {rows} != 1")
+        return i, None
+    if ids.shape != (rows,):
+        raise ValueError(f"layer ids {tuple(ids.shape)} != ({rows},)")
+    if rows == 0:
+        return 0, None
+    if ids.device.type == "cpu":
+        vals = ids.to(torch.long)
+        if not (0 <= int(vals.min()) and int(vals.max()) < L):
+            raise ValueError(f"layer ids outside [0, {L})")
+        if torch.equal(vals, torch.arange(int(vals[0]), int(vals[0]) + rows)):
+            return int(vals[0]), None
+    return 0, ids.to(device=device, dtype=torch.int32).contiguous()
+
+
+def adel_agg_grouped(leaves: list, ids: list, coeff: torch.Tensor) -> list:
+    """Fold every leaf of one dtype in one launch: ``leaves`` (U, L_leaf, F)
+    f32 or bf16 tensors, contiguous; ``ids`` each leaf's layer ids, an int
+    (L_leaf = 1) or an (L_leaf,) integer tensor in [0, L); ``coeff`` (U, L).
+    Returns each leaf's (L_leaf, F) fold in its dtype. More than
+    ``MAX_LEAVES`` leaves take one launch per ``MAX_LEAVES``."""
+    if not leaves:
+        return []
+    dev = leaves[0].device
+    if dev.type == "cpu":
+        return adel_agg_grouped_plain(leaves, ids, coeff)
+    if dev.type != "cuda":
+        raise ValueError(f"adel_agg_grouped runs on CUDA or CPU, not {dev}")
+    dtype, U = leaves[0].dtype, leaves[0].shape[0]
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported dtype {dtype}; takes float32, bfloat16")
+    if coeff.dim() != 2 or coeff.shape[0] != U or coeff.device != dev:
+        raise ValueError(f"coeff {tuple(coeff.shape)} on {coeff.device} is "
+                         f"not (U={U}, L) on {dev}")
+    for x in leaves:
+        if x.dim() != 3 or x.shape[0] != U or x.dtype != dtype:
+            raise ValueError(f"leaf {tuple(x.shape)} {x.dtype} is not "
+                             f"(U={U}, L_leaf, F) {dtype}")
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError("every leaf must be contiguous, on one device")
+    L = coeff.shape[1]
+    c = _f32(coeff)
+    itemsize = leaves[0].element_size()
+    vn = 16 // itemsize
+    # every output in one buffer, each starting on a 16-byte boundary
+    sizes = [x.shape[1] * x.shape[2] for x in leaves]
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // vn) * vn
+    rows = [_layer_rows(i, x.shape[1], L, dev) for x, i in zip(leaves, ids)]
+    fn = _grouped_kernel(dtype)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        buf = torch.empty(max(total, 1), dtype=dtype, device=dev)
+        outs = [buf[o:o + n].view(x.shape[1], x.shape[2])
+                for o, n, x in zip(offs, sizes, leaves)]
+        for entries, blocks in fold_plan([tuple(x.shape[1:]) for x in leaves],
+                                         itemsize):
+            table = _FoldTable(coeff=c.data_ptr(), U=U, L=L, n=len(entries))
+            for k, e in enumerate(entries):
+                x, out = leaves[e.leaf], outs[e.leaf]
+                id0, idv = rows[e.leaf]
+                F = x.shape[2]
+                vec = (F % vn == 0 and x.data_ptr() % 16 == 0
+                       and out.data_ptr() % 16 == 0)
+                table.leaf[k] = _FoldLeaf(
+                    x.data_ptr(), out.data_ptr(),
+                    None if idv is None else idv.data_ptr(), F, e.tile0,
+                    e.tiles, id0, e.rows, int(vec))
+            err = fn(ctypes.byref(table), blocks, stream)
+            if err != 0:
+                raise RuntimeError(f"adel_agg_grouped launch failed: error "
+                                   f"{err}")
+            adel_agg_grouped.launches += 1
+    return outs
+
+
 adel_agg.launches = 0
 adel_agg_q8.launches = 0
+adel_agg_grouped.launches = 0

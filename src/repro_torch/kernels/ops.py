@@ -19,7 +19,9 @@ vector keeps its leading layer axis and flattens the rest to F; a
 whole-tensor leaf (a scalar layer id, as every paper-model leaf has) is
 ``L_leaf = 1``. So the hand-written kernel carries every leaf of the main
 path, where the reference folds scalar-id leaves with a ``tensordot``; both
-compute the same function.
+compute the same function. On the card the leaves of one dtype go in one
+grouped launch (``adel_agg_grouped``), which reads each leaf's weights from
+the (U, L) coefficients through its layer ids.
 """
 from __future__ import annotations
 
@@ -28,13 +30,13 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels.adel_agg import adel_agg
+from repro_torch.kernels.adel_agg import adel_agg_grouped, leaf_coeff_rows
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 __all__ = ["gqa_flash", "ssd_chunked_kernel", "leaf_dims", "leaf_coeff_rows",
-           "fold_leaf", "adel_aggregate"]
+           "fold_tree", "adel_aggregate"]
 
 PyTree = Any
 
@@ -55,43 +57,42 @@ def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        chunk: int = 64) -> torch.Tensor:
     """Model layout: x (B,S,H,P); dt (B,S,H); A (H,); b,c (B,S,N) -> y
     (B,S,H,P) in x's dtype (the skip term stays with the caller). Pre-scales
-    ``xdt = x * dt`` and ``la = -A * dt`` in f32; ``b`` and ``c`` go to the
-    kernel per batch (G = B), not copied out per head."""
-    B, S, H, P = x.shape
+    ``xdt = x * dt`` and ``la = -A * dt`` in f32, in the model's layout; the
+    kernel reads their (B, H, S, P) and (B, H, S) views through strides and
+    writes y in xdt's (B, S, H, P) memory, so on the card nothing is copied
+    between layouts. ``b`` and ``c`` go to the kernel per batch (G = B), not
+    copied out per head."""
     f32 = torch.float32
-    xdt = (x.to(f32) * dt[..., None]).transpose(1, 2).reshape(B * H, S, P)
-    la = (-A[None, None, :] * dt).to(f32).transpose(1, 2).reshape(B * H, S)
-    y = ssd_scan(xdt.contiguous(), la.contiguous(), b.to(f32).contiguous(),
-                 c.to(f32).contiguous(), chunk=chunk)
-    return y.reshape(B, H, S, P).transpose(1, 2).to(x.dtype)
-
-
-def _ids_ndim(ids) -> int:
-    return ids.dim() if isinstance(ids, torch.Tensor) else 0
+    xdt = x * dt.to(f32)[..., None]        # (B, S, H, P) f32, x promoted
+    la = (-A[None, None, :] * dt).to(f32)                     # (B, S, H)
+    y = ssd_scan(xdt.transpose(1, 2), la.transpose(1, 2),
+                 b.to(f32).contiguous(), c.to(f32).contiguous(), chunk=chunk)
+    return y.transpose(1, 2).to(x.dtype)
 
 
 def leaf_dims(shape, ids) -> tuple[int, int]:
     """Canonical (L_leaf, F) of one param leaf of ``shape``."""
-    if _ids_ndim(ids) == 0:
+    if not isinstance(ids, torch.Tensor) or ids.dim() == 0:
         return 1, math.prod(shape)
     return int(shape[0]), math.prod(shape[1:])
 
 
-def leaf_coeff_rows(c: torch.Tensor, ids) -> torch.Tensor:
-    """The Eq. 5 coefficient rows of one leaf: (U, L_leaf), contiguous."""
-    if _ids_ndim(ids) == 0:
-        return c[:, int(ids)].unsqueeze(1).contiguous()
-    return c.index_select(1, ids.to(device=c.device, dtype=torch.long))
-
-
-def fold_leaf(g: torch.Tensor, ids, c: torch.Tensor) -> torch.Tensor:
-    """Fold one leaf of stacked client grads ``(U,) + shape`` with the
-    coefficients ``c`` (U, L) through :func:`adel_agg`; returns ``shape``."""
-    U = g.shape[0]
-    Ll, F = leaf_dims(g.shape[1:], ids)
-    out = adel_agg(g.reshape(U, Ll, F).contiguous(),
-                   leaf_coeff_rows(c, ids).to(torch.float32))
-    return out.reshape(g.shape[1:])
+def fold_tree(grads: PyTree, layer_ids: PyTree, coeffs: torch.Tensor) -> PyTree:
+    """``agg^l = sum_u coeffs[u, l] g_u^l`` over a pytree of stacked client
+    grads ``(U,) + shape``: the leaves of each dtype in one
+    :func:`adel_agg_grouped` call (one launch on the card, up to
+    ``MAX_LEAVES`` leaves). Returns the folded pytree in the grads' dtypes."""
+    leaves, ids = tree_leaves(grads), tree_leaves(layer_ids)
+    flat = [g.reshape(g.shape[0], *leaf_dims(g.shape[1:], i)).contiguous()
+            for g, i in zip(leaves, ids)]
+    out: list = [None] * len(leaves)
+    for dtype in dict.fromkeys(g.dtype for g in leaves):
+        idx = [k for k, g in enumerate(leaves) if g.dtype == dtype]
+        folded = adel_agg_grouped([flat[k] for k in idx],
+                                  [ids[k] for k in idx], coeffs)
+        for k, o in zip(idx, folded):
+            out[k] = o.reshape(leaves[k].shape[1:])
+    return tree_unflatten(grads, out)
 
 
 def adel_aggregate(grads: PyTree, layer_ids: PyTree, mask: torch.Tensor | None,
@@ -106,4 +107,4 @@ def adel_aggregate(grads: PyTree, layer_ids: PyTree, mask: torch.Tensor | None,
     if coeffs is None:
         from repro_torch.core.aggregation import layer_coefficients
         coeffs = layer_coefficients(mask, p, bias_correct=bias_correct)
-    return tree_map(lambda g, ids: fold_leaf(g, ids, coeffs), grads, layer_ids)
+    return fold_tree(grads, layer_ids, coeffs)

@@ -1,71 +1,105 @@
-"""Mamba2 SSD chunk scan: a hand-written CUDA kernel for Hopper
-(``csrc/ssd_scan.cu``) and its plain PyTorch version.
+"""Mamba2 SSD chunk scan: hand-written CUDA kernels for Hopper
+(``csrc/ssd_scan.cu``) and their plain PyTorch version.
 
 :func:`ssd_scan` replaces ``repro/kernels/ssd_scan.py:ssd_scan``: inputs
-pre-scaled by the caller, ``xdt = x * dt`` (BH, S, P) and ``la = -A * dt``
-(BH, S), with ``b`` and ``c`` (G, S, N) read per group: head ``bh`` uses row
-``bh // (BH // G)``. The model passes its per-batch projections (G = B), so
-nothing is copied out per head; ``G = BH`` is the reference's per-head
-layout. Per chunk of Q = min(chunk, S) tokens it forms the within-chunk
-dual term and carries an f32 (N, P) state across chunks; y (BH, S, P) f32.
-``S % Q == 0`` is the caller's job, as in the reference.
+pre-scaled by the caller, ``xdt = x * dt`` and ``la = -A * dt``, with ``b``
+and ``c`` (G, S, N) read per group: head ``bh`` uses row ``bh // (BH // G)``.
+The model passes its per-batch projections (G = B), so nothing is copied out
+per head; ``G = BH`` is the reference's per-head layout. ``xdt`` is (BH, S,
+P) or (G, r, S, P), ``la`` (BH, S) or (G, r, S), read through their strides
+(:func:`scan_strides`): ``ops.ssd_chunked_kernel`` hands over (B, H, S, P)
+and (B, H, S) views of the model's (B, S, H, P) and (B, S, H) tensors and
+gets y back in (B, S, H, P) memory with no copy. Per chunk of Q = min(chunk,
+S) tokens it forms the within-chunk dual term and passes an f32 (N, P)
+state from chunk to chunk; y (like xdt, same strides) f32. ``S % Q == 0``
+is the caller's job, as in the reference.
 
-Bound on an H100 SXM: near the f32 ridge at the model's shapes (the
-source's header has the counts and the design).
+On the card one call is the three-phase chunk scan (chunk states in
+parallel, a short recurrence over them, outputs in parallel; four launches
+on the stream, the source's header has the design and the bound), with a
+scratch of :func:`scratch_floats` floats from ``torch.empty``.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+On a CUDA tensor the wrapper launches the kernels or raises; on a CPU tensor
 it computes :func:`ssd_scan_plain` (the chunked SSD algorithm of
-``models/ssm.py``, in f32), which ``chip_smoke.py`` also holds the kernel
-against on the card. ``ssd_scan.launches`` counts the launches.
+``models/ssm.py``, in f32), which ``chip_smoke.py`` also holds the kernels
+against on the card. ``ssd_scan.launches`` counts the calls that launched
+the three-phase scan (one per call, whatever its four launches).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.models.ssm import chunk_scan
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "scan_strides"]
 
 _LIB = "ssd_scan"
 _INVALID_VALUE = 1            # cudaErrorInvalidValue
 
 
 def _shapes(xdt, b, chunk: int) -> tuple:
-    BH, S, P = xdt.shape
+    *lead, S, P = xdt.shape
     G, _, N = b.shape
-    return BH, G, S, P, N, min(chunk, S)
+    return math.prod(lead), G, S, P, N, min(chunk, S)
 
 
 def ssd_scan_plain(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
-    """Plain PyTorch SSD chunk scan, the kernel's reference: y (BH, S, P)
-    in xdt's dtype, computed in f32."""
+    """Plain PyTorch SSD chunk scan, the kernel's reference: y of xdt's
+    shape and dtype, computed in f32."""
     BH, G, S, P, N, Q = _shapes(xdt, b, chunk)
     r = BH // G
     y, _ = chunk_scan(xdt.reshape(G, r, S, P), la.reshape(G, r, S), b, c,
                       chunk=Q)
-    return y.reshape(BH, S, P).to(xdt.dtype)
+    return y.reshape(xdt.shape).to(xdt.dtype)
+
+
+def scan_strides(t: torch.Tensor, G: int, *, features: bool) -> tuple:
+    """Element strides (group, head, token) by which the kernels step
+    through ``xdt`` (``features``: (BH, S, P) or (G, r, S, P), P
+    unit-stride) or ``la`` ((BH, S) or (G, r, S)). A single leading dim BH
+    is split into G groups of r = BH // G heads."""
+    lead = t.dim() - (2 if features else 1)
+    if lead not in (1, 2):
+        raise ValueError(f"{tuple(t.shape)} is not ({'BH' if lead < 2 else 'G, r'}"
+                         f", S{', P' if features else ''})")
+    if features and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"the P dim of {tuple(t.shape)} needs unit stride, "
+                         f"not {t.stride(-1)}")
+    if lead == 2:
+        return t.stride(0), t.stride(1), t.stride(2)
+    return (t.shape[0] // G) * t.stride(0), t.stride(0), t.stride(1)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = load_library(_LIB).ssd_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _kernels():
+    lib = load_library(_LIB)
+    scratch = lib.ssd_scan_scratch_floats
+    scratch.argtypes = [ctypes.c_int] * 6
+    scratch.restype = ctypes.c_longlong
+    fn = lib.ssd_scan_f32
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = ([vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, vp, ll, ll, ll, vp]
+                   + [ctypes.c_int] * 6 + [vp])
     fn.restype = ctypes.c_int
-    return fn
+    return scratch, fn
 
 
 def _check(xdt, la, b, c, chunk: int) -> tuple:
-    if xdt.dim() != 3 or la.dim() != 2 or b.dim() != 3 or c.shape != b.shape:
-        raise ValueError(f"expected xdt (BH, S, P), la (BH, S), b, c (G, S, N);"
-                         f" got {tuple(xdt.shape)}, {tuple(la.shape)}, "
+    if (xdt.dim() not in (3, 4) or la.dim() != xdt.dim() - 1 or b.dim() != 3
+            or c.shape != b.shape):
+        raise ValueError(f"expected xdt (BH, S, P) or (G, r, S, P), la of its "
+                         f"shape less P, b, c (G, S, N); got "
+                         f"{tuple(xdt.shape)}, {tuple(la.shape)}, "
                          f"{tuple(b.shape)}, {tuple(c.shape)}")
     BH, G, S, P, N, Q = _shapes(xdt, b, chunk)
-    if la.shape != (BH, S) or b.shape[1] != S or G < 1 or BH % G:
+    if (la.shape != xdt.shape[:-1] or b.shape[1] != S or G < 1 or BH % G
+            or (xdt.dim() == 4 and xdt.shape[0] != G)):
         raise ValueError(f"la {tuple(la.shape)} / b {tuple(b.shape)} do not "
                          f"match xdt {tuple(xdt.shape)} (BH % G == 0)")
     if Q < 1 or S % Q:
@@ -74,26 +108,33 @@ def _check(xdt, la, b, c, chunk: int) -> tuple:
     for t in (xdt, la, b, c):
         if t.dtype != torch.float32:
             raise TypeError(f"ssd_scan takes float32 inputs, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("ssd_scan inputs must be contiguous")
         if t.device != xdt.device:
             raise ValueError(f"inputs on {t.device} and {xdt.device}")
+    if not (b.is_contiguous() and c.is_contiguous()):
+        raise ValueError("ssd_scan's b and c must be contiguous")
     return BH, G, S, P, N, Q
 
 
 def ssd_scan(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
-    """xdt (BH, S, P), la (BH, S), b, c (G, S, N) f32 -> y (BH, S, P) f32."""
+    """xdt (BH, S, P) or (G, r, S, P), la (BH, S) or (G, r, S), b, c (G, S,
+    N), all f32 -> y f32 of xdt's shape and strides."""
     if xdt.device.type == "cpu":
         return ssd_scan_plain(xdt, la, b, c, chunk=chunk)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or CPU, not {xdt.device}")
     BH, G, S, P, N, Q = _check(xdt, la, b, c, chunk)
+    xs = scan_strides(xdt, G, features=True)
+    ls = scan_strides(la, G, features=False)
+    scratch_floats, fn = _kernels()
     with torch.cuda.device(xdt.device):
-        y = torch.empty_like(xdt)
-        err = _kernel()(xdt.data_ptr(), la.data_ptr(), b.data_ptr(),
-                        c.data_ptr(), y.data_ptr(), BH, G, S, P, N, Q,
-                        torch.cuda.current_stream().cuda_stream)
+        y = torch.empty_like(xdt)          # dense inputs keep their strides
+        ys = scan_strides(y, G, features=True)
+        scratch = torch.empty(scratch_floats(G, BH // G, S, P, N, Q),
+                              dtype=torch.float32, device=xdt.device)
+        err = fn(xdt.data_ptr(), *xs, la.data_ptr(), *ls, b.data_ptr(),
+                 c.data_ptr(), y.data_ptr(), *ys, scratch.data_ptr(), G,
+                 BH // G, S, P, N, Q, torch.cuda.current_stream().cuda_stream)
     if err == _INVALID_VALUE:   # the sizes passed _check; the tiles do not fit
         raise ValueError(f"chunk {Q}, P {P}, N {N} need more shared memory "
                          "than a block may have")

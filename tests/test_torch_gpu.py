@@ -75,6 +75,55 @@ def test_adel_agg_q8_kernel_matches_plain(cuda, U, L, F):
     assert _close(out, adel_agg_q8_plain(q, amax / 127.0, c), 1e-5, 1e-5)
 
 
+def _fold_leaves(cuda, spec, dtype, seed=0):
+    """Leaves (U, rows, F) of ``dtype`` and their layer ids from ``spec``, a
+    list of (rows, F, stacked), against a (U, L) coefficient matrix."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    U, L = 10, 40
+    leaves, ids = [], []
+    for k, (rows, F, stacked) in enumerate(spec):
+        leaves.append(torch.randn((U, rows, F), generator=gen,
+                                  device=cuda).to(dtype))
+        if not stacked:
+            ids.append(k % L)
+        elif k % 2:        # a host-side range: id0 + row
+            ids.append(torch.arange(k % 7, k % 7 + rows))
+        else:              # ids on the device, in any order
+            ids.append(torch.randperm(L, device=cuda)[:rows])
+    return leaves, ids, torch.rand((U, L), generator=gen, device=cuda)
+
+
+# every VGG-11 leaf size at full width (whole-tensor leaves), and a table
+# of 70 leaves, split over two launches: stacked and scalar ids, ragged F
+VGG11_F = [64, 64, 64, 1728, 128, 128, 128, 73728, 256, 256, 256, 294912,
+           256, 256, 256, 589824, 512, 512, 512, 1179648, 512, 512, 512,
+           2359296, 512, 512, 512, 2359296, 512, 512, 512, 2359296, 512,
+           262144, 512, 262144, 10, 5120]
+FOLD_TABLES = {
+    "vgg11": [(1, F, False) for F in VGG11_F],
+    "two_launches": [(1 + k % 3, [300, 7, 4096, 1000, 8, 2048][k % 6],
+                      k % 3 > 0) for k in range(70)],
+}
+
+
+@pytest.mark.parametrize("table", sorted(FOLD_TABLES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adel_agg_grouped_matches_plain(cuda, table, dtype):
+    """One grouped launch per MAX_LEAVES leaves, each leaf's weights read
+    from the (U, L) matrix through its layer ids."""
+    from repro_torch.kernels.adel_agg import (MAX_LEAVES, adel_agg_grouped,
+                                              adel_agg_grouped_plain)
+    leaves, ids, c = _fold_leaves(cuda, FOLD_TABLES[table], dtype)
+    before = adel_agg_grouped.launches
+    outs = adel_agg_grouped(leaves, ids, c)
+    torch.cuda.synchronize()
+    assert adel_agg_grouped.launches - before == -(-len(leaves) // MAX_LEAVES)
+    for out, ref, x in zip(outs, adel_agg_grouped_plain(leaves, ids, c),
+                           leaves):
+        assert out.shape == x.shape[1:] and out.dtype == dtype
+        assert _close(out, ref, **TOL[dtype]), (out.float() - ref.float()).abs().max()
+
+
 def test_kernel_wrappers_check_their_inputs(cuda):
     from repro_torch.kernels.adel_agg import adel_agg, adel_agg_q8
     g = torch.zeros((4, 2, 8), device=cuda)
@@ -87,12 +136,23 @@ def test_kernel_wrappers_check_their_inputs(cuda):
     with pytest.raises(TypeError):
         adel_agg_q8(g, torch.zeros((4, 2), device=cuda),
                     torch.zeros((4, 2), device=cuda))
+    from repro_torch.kernels.adel_agg import adel_agg_grouped
+    c = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError):
+        adel_agg_grouped([g, g.to(torch.bfloat16)], [0, 1], c)   # mixed dtypes
+    with pytest.raises(ValueError):
+        adel_agg_grouped([g.transpose(1, 2)], [torch.arange(8)], c)
+    with pytest.raises(ValueError):
+        adel_agg_grouped([g], [torch.tensor([0, 3])], c)         # id >= L
+    with pytest.raises(TypeError):
+        adel_agg_grouped([g.half()], [torch.arange(2)], c)
 
 
 @pytest.mark.parametrize("comp", [None, "int8"])
 def test_dense_round_on_card_matches_cpu(cuda, comp):
     from repro_torch.fl.backends import DenseBackend
-    from repro_torch.kernels.adel_agg import adel_agg, adel_agg_q8
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_q8)
     from repro_torch.models.paper_models import make_cnn
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -110,8 +170,11 @@ def test_dense_round_on_card_matches_cpu(cuda, comp):
         np.float32))
     p = torch.full((model.L,), 0.1)
     outs = {}
+    # on the card: one grouped launch for the round's f32 leaves
+    # uncompressed, one adel_agg_q8 launch a leaf for int8
     for dev in ("cpu", "cuda"):
-        launches = (adel_agg.launches, adel_agg_q8.launches)
+        launches = (adel_agg_grouped.launches, adel_agg_q8.launches,
+                    adel_agg.launches)
         backend = DenseBackend(model, compression=comp, device=dev)
         with torch.backends.cudnn.flags(enabled=False):
             out = backend.run_round(tree_map(lambda a: a.to(dev), params),
@@ -119,10 +182,11 @@ def test_dense_round_on_card_matches_cpu(cuda, comp):
                                     bias_correct=True)
         outs[dev] = [a.cpu() for a in tree_leaves(out)]
         n = len(tree_leaves(params))
-        done = (adel_agg.launches - launches[0],
-                adel_agg_q8.launches - launches[1])
-        expect = (0, 0) if dev == "cpu" else (
-            (n, 0) if comp is None else (0, n))
+        done = (adel_agg_grouped.launches - launches[0],
+                adel_agg_q8.launches - launches[1],
+                adel_agg.launches - launches[2])
+        expect = (0, 0, 0) if dev == "cpu" else (
+            (1, 0, 0) if comp is None else (0, n, 0))
         assert done == expect, (dev, done)
     steps = [0.0] * n
     if comp == "int8":
@@ -149,8 +213,10 @@ def test_dense_round_fold_matches_plain_on_card(cuda, comp):
     from repro_torch.core.aggregation import layer_coefficients
     from repro_torch.core.compression import compress_deltas, make_compression
     from repro_torch.fl.backends import DenseBackend
-    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_plain,
-                                              adel_agg_q8, adel_agg_q8_plain)
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_grouped_plain,
+                                              adel_agg_plain, adel_agg_q8,
+                                              adel_agg_q8_plain)
     from repro_torch.kernels.ops import leaf_coeff_rows, leaf_dims
     from repro_torch.models.paper_models import make_cnn
     from repro_torch.tree import tree_leaves
@@ -167,10 +233,15 @@ def test_dense_round_fold_matches_plain_on_card(cuda, comp):
     deltas = DenseBackend(model, device=cuda)._deltas(params, xb, yb, wb, 0.5)
     ids = tree_leaves(model.layer_ids(params))
     if comp is None:
+        xs = []
         for g, i in zip(tree_leaves(deltas), ids):
             Ll, F = leaf_dims(g.shape[1:], i)
             x, w = g.reshape(U, Ll, F).contiguous(), leaf_coeff_rows(c, i)
             assert _close(adel_agg(x, w), adel_agg_plain(x, w), 1e-5, 1e-5)
+            xs.append(x)
+        for out, ref in zip(adel_agg_grouped(xs, ids, c),
+                            adel_agg_grouped_plain(xs, ids, c)):
+            assert _close(out, ref, 1e-5, 1e-5)
     else:
         payload = compress_deltas(deltas, model.layer_ids(params),
                                   make_compression(comp))
@@ -265,6 +336,34 @@ def test_ssd_scan_kernel_matches_plain(cuda, G, r, S, P, N, chunk):
     y = ssd_scan(xdt, la, b, c, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
+    ref = ssd_scan_plain(xdt, la, b, c, chunk=chunk)
+    assert _close(y, ref, **SSD_TOL), (y - ref).abs().max()
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (2, 64, 4096, 50, 16, 64),     # hymba-1.5b's prefill, as the model lays it out
+    (1, 5, 256, 7, 5, 32),         # odd widths
+])
+def test_ssd_scan_kernel_reads_the_model_layout(cuda, B, H, S, P, N, chunk):
+    """(B, H, S, P) and (B, H, S) views of the model's (B, S, H, P) and
+    (B, S, H) tensors, read through their strides: y comes back in xdt's
+    layout, equal to the contiguous call's and within SSD_TOL of the plain
+    version."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xdt = torch.randn((B, S, H, P), generator=gen, device=cuda).transpose(1, 2)
+    la = -0.5 * torch.rand((B, S, H), generator=gen,
+                           device=cuda).transpose(1, 2)
+    b = 0.3 * torch.randn((B, S, N), generator=gen, device=cuda)
+    c = 0.3 * torch.randn((B, S, N), generator=gen, device=cuda)
+    before = ssd_scan.launches
+    y = ssd_scan(xdt, la, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.shape == xdt.shape and y.stride() == xdt.stride()
+    flat = ssd_scan(xdt.reshape(B * H, S, P).contiguous(),
+                    la.reshape(B * H, S).contiguous(), b, c, chunk=chunk)
+    assert torch.equal(y.reshape(B * H, S, P), flat)
     ref = ssd_scan_plain(xdt, la, b, c, chunk=chunk)
     assert _close(y, ref, **SSD_TOL), (y - ref).abs().max()
 

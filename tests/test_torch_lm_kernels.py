@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  kernel_strides, visible_mask,
                                                  visible_pairs)
 from repro_torch.kernels.ops import gqa_flash, ssd_chunked_kernel
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import scan_strides, ssd_scan, ssd_scan_plain
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -349,3 +349,117 @@ def test_ssd_plain_is_the_wrapper_on_cpu():
     assert torch.equal(ssd_scan(x, la, b, b, chunk=16),
                        ssd_scan_plain(x, la, b, b, chunk=16))
     assert ssd_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the three-phase chunk scan, in the card kernels' order
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _three_phase(xdt, la, b, c, Q):
+    """The card's SSD scan (``csrc/ssd_scan.cu``) in plain PyTorch, phase by
+    phase: C B^T once per (group, chunk); per head cum, exp(tot) and the
+    chunk's state contribution; the states passed chunk by chunk; outputs
+    with the decay factored about each 4-row tile's first row, as the
+    kernel applies it. xdt (G, r, S, P), la (G, r, S), b, c (G, S, N), f32."""
+    G, r, S, P = xdt.shape
+    N, nC = b.shape[-1], S // Q
+    X = xdt.reshape(G, r, nC, Q, P)
+    Bc, Cc = b.reshape(G, nC, Q, N), c.reshape(G, nC, Q, N)
+    # 1. C B^T once per (group, chunk), stored [j][i]
+    cbT = torch.einsum("gcjn,gcin->gcji", Bc, Cc)
+    # 2. per head: cum, exp(tot), (B o exp(tot - cum))^T X
+    cum = la.reshape(G, r, nC, Q).cumsum(-1)
+    tot = cum[..., -1]
+    w = torch.exp(tot[..., None] - cum)
+    states = torch.einsum("gcjn,grcjp->grcnp", Bc, w[..., None] * X)
+    # 3. h_in[k] = h; h = exp(tot_k) h + s_k, chunk by chunk
+    h = torch.zeros((G, r, N, P))
+    h_in = torch.empty_like(states)
+    for k in range(nC):
+        h_in[:, :, k] = h
+        h = torch.exp(tot[:, :, k, None, None]) * h + states[:, :, k]
+    # 4. y = exp(cum_i - cum_i0) sum_j (C B^T)_ij exp(cum_i0 - cum_j) X_j
+    #        + exp(cum_i) C_i h_in, i0 = i rounded down to its 4-row tile
+    c2 = cum * LOG2E
+    i = torch.arange(Q)
+    i0 = (i // 4) * 4
+    c0 = c2[..., i0]                                           # (G, r, nC, Q)
+    bfac = torch.exp2(c0[..., :, None] - c2[..., None, :])     # [i][j]
+    bfac = bfac * (i[None, :] <= i[:, None])
+    m = cbT.transpose(-1, -2)[:, None] * bfac                  # (G,r,nC,Q,Q)
+    intra = torch.exp2(c2 - c0)[..., None] * (m @ X)
+    inter = torch.exp2(c2)[..., None] * (Cc[:, None] @ h_in)
+    return (intra + inter).reshape(G, r, S, P)
+
+
+@pytest.mark.parametrize("G,r,S,P,N,Q", [
+    (1, 2, 64, 16, 8, 64),       # one chunk
+    (2, 3, 256, 16, 8, 32),      # many chunks, r > 1 heads a group
+    (2, 4, 256, 50, 16, 64),     # hymba-1.5b's P and N
+    (1, 2, 128, 64, 128, 64),    # mamba2-370m's P and N, narrowed
+    (3, 1, 96, 7, 5, 16),        # per-head b, c (G = BH), odd widths
+])
+def test_three_phase_scan_matches_pallas(G, r, S, P, N, Q):
+    """The kernels' three-phase order (C B^T once per (batch, chunk),
+    states passed chunk by chunk) against the reference's Pallas kernel,
+    which carries the state through a sequential chunk loop."""
+    rng = np.random.default_rng(G * 100 + P)
+    xdt = rng.standard_normal((G, r, S, P)).astype(np.float32)
+    la = -rng.uniform(size=(G, r, S)).astype(np.float32)
+    b = (0.3 * rng.standard_normal((G, S, N))).astype(np.float32)
+    c = (0.3 * rng.standard_normal((G, S, N))).astype(np.float32)
+    bh = np.broadcast_to(b[:, None], (G, r, S, N)).reshape(G * r, S, N)
+    ch = np.broadcast_to(c[:, None], (G, r, S, N)).reshape(G * r, S, N)
+    ref = ref_ssd_scan(jnp.asarray(xdt.reshape(G * r, S, P)),
+                       jnp.asarray(la.reshape(G * r, S)), jnp.asarray(bh),
+                       jnp.asarray(ch), chunk=Q, interpret=True)
+    out = _three_phase(*_t(xdt, la, b, c), Q)
+    _close(out.reshape(G * r, S, P), ref, SSD_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P", [(2, 128, 3, 50), (1, 64, 1, 7)])
+def test_scan_strides_read_the_model_layout(B, S, H, P):
+    """The kernels step through (group, head, token) with P unit-stride:
+    (B, H, S, P) views of the model's (B, S, H, P) tensors and (B, H, S)
+    views of its (B, S, H) tensors, contiguous 4-D (G, r, S, P) and 3-D
+    (BH, S, P) inputs, whose BH splits into G groups of r heads."""
+    x = torch.zeros((B, S, H, P))
+    assert scan_strides(x.transpose(1, 2), B, features=True) == (
+        S * H * P, P, H * P)
+    la = torch.zeros((B, S, H))
+    assert scan_strides(la.transpose(1, 2), B, features=False) == (S * H, 1, H)
+    flat = torch.zeros((B * H, S, P))
+    assert scan_strides(flat, B, features=True) == (H * S * P, S * P, P)
+    assert scan_strides(flat.view(B, H, S, P), B, features=True) == (
+        H * S * P, S * P, P)
+    assert scan_strides(torch.zeros((B * H, S)), B, features=False) == (
+        H * S, S, 1)
+    with pytest.raises(ValueError, match="unit stride"):
+        scan_strides(torch.zeros((B, H, P, S)).transpose(2, 3), B,
+                     features=True)
+    with pytest.raises(ValueError):
+        scan_strides(torch.zeros((S, P)), 1, features=True)
+
+
+def test_ssd_scan_model_layout_views_equal_contiguous():
+    """(B, H, S, P) views of model-layout tensors and their contiguous
+    copies give equal y, in xdt's shape, through ``ssd_scan`` and through
+    ``ssd_chunked_kernel``'s (B, S, H, P) result."""
+    B, S, H, P, N, chunk = 2, 128, 3, 50, 16, 32
+    x, dt, A, b, c = _ssd_inputs(B, S, H, P, N, seed=7)
+    xdt = torch.from_numpy(x * dt[..., None])
+    la = torch.from_numpy(-A[None, None] * dt)
+    bt, ct = _t(b, c)
+    view = ssd_scan(xdt.transpose(1, 2), la.transpose(1, 2), bt, ct,
+                    chunk=chunk)
+    flat = ssd_scan(xdt.transpose(1, 2).reshape(B * H, S, P).contiguous(),
+                    la.transpose(1, 2).reshape(B * H, S).contiguous(), bt, ct,
+                    chunk=chunk)
+    assert view.shape == (B, H, S, P)
+    assert torch.equal(view.reshape(B * H, S, P), flat)
+    model = ssd_chunked_kernel(*_t(x, dt, A, b, c), chunk=chunk)
+    assert model.shape == (B, S, H, P)
+    assert torch.equal(model, view.transpose(1, 2))

@@ -12,12 +12,13 @@
    case, and for ``adel_agg_q8`` a zero-coefficient row and a zero-scale
    layer; times kernel, plain version and one ``torch.einsum`` (a yardstick
    the port never calls) as CUDA-graph replays, the kernel also as eager
-   calls, and computes the bandwidth bound. The grouped fold
-   (``adel_agg_grouped``) also folds a table of 70 leaves (stacked and
-   scalar layer ids, ragged F) in two launches. Then one round's fold: all
-   38 VGG-11 leaves, f32 in one grouped launch and int8 in 38
-   ``adel_agg_q8`` launches, each against its plain version, timed the same
-   way beside the 38 ``torch.einsum`` calls.
+   calls, and computes the bandwidth bound. The grouped folds
+   (``adel_agg_grouped`` in f32 and bf16, ``adel_agg_q8_grouped`` in int8)
+   also fold a table of 70 leaves (stacked and scalar layer ids, ragged F)
+   in two launches. Then one round's fold: all 38 VGG-11 leaves, f32 in one
+   grouped launch and int8 in one grouped launch, each against its plain
+   version, timed the same way beside the 38 ``torch.einsum`` calls (f32)
+   and the 38 per-leaf ``adel_agg_q8`` launches of earlier rounds (int8).
 4. Holds the LM kernels against their plain versions the same way:
    ``flash_attention`` (bf16 on the tensor cores, f32 on the CUDA cores) at
    hymba-1.5b's prefill shape, at yi-6b's, with a ragged S, non-causal with
@@ -33,10 +34,10 @@
 5. Drives the FL path at full width: ``run_federated`` on VGG-11
    (``width_scale=1.0``), synthetic CIFAR, U=10 Dirichlet(0.5) clients, the
    ADEL policy from ``solve(cfg, "adam")``, once uncompressed and once with
-   int8 payloads: uncompressed, one grouped fold launch a round; int8, 38
-   ``adel_agg_q8`` launches (one a leaf) a round. A third, uncompressed run
-   is profiled: device busy and idle time per round, the fold kernels'
-   share, the top device kernels.
+   int8 payloads: one grouped fold launch a round each
+   (``adel_agg_grouped``, ``adel_agg_q8_grouped``). Two more runs, one of
+   each, are profiled: device busy and idle time per round, the fold
+   kernel's share, the top device kernels.
 6. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
 7. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
    (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
@@ -248,27 +249,44 @@ def kernel_cases(torch, leaf_F: dict) -> list:
                    agg_bytes(U, L, F, g.element_size()), 2 * U * L * F)
         q8_case(tag, *quantize(torch, g32), c)
 
-    # the grouped fold: 70 leaves, two launches; stacked ids on the host
+    # the grouped folds: 70 leaves, two launches; stacked ids on the host
     # (a range) and on the card, scalar ids, ragged F
-    from repro_torch.kernels.adel_agg import (MAX_LEAVES, adel_agg_grouped,
-                                              adel_agg_grouped_plain)
+    from repro_torch.kernels.adel_agg import (
+        adel_agg_grouped, adel_agg_grouped_plain, adel_agg_q8_grouped,
+        adel_agg_q8_grouped_plain, table_leaves)
     L = 40
     spec = [(1 + k % 3, [300, 7, 4096, 1000, 8, 2048][k % 6]) for k in range(70)]
-    for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        leaves = [randn(U_MAIN, rows, F).to(tdt) for rows, F in spec]
+    for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                       ("q8", torch.int8)):
+        g32 = [randn(U_MAIN, rows, F) for rows, F in spec]
         ids = [k % L if rows == 1 else
                (torch.arange(k % 7, k % 7 + rows) if k % 2 else
                 torch.randperm(L, generator=gen, device="cuda")[:rows])
                for k, (rows, F) in enumerate(spec)]
         c = rand(U_MAIN, L)
-        before = adel_agg_grouped.launches
-        outs = adel_agg_grouped(leaves, ids, c)
-        check(adel_agg_grouped.launches - before == -(-70 // MAX_LEAVES),
-              "the 70-leaf table did not take two grouped launches")
         # the plain version gathers coefficient rows with the ids on the
         # card, so that it can be captured in a CUDA graph
         ids_dev = [i if isinstance(i, int) else i.to("cuda") for i in ids]
-        refs = adel_agg_grouped_plain(leaves, ids_dev, c)
+        if dtype == "q8":
+            g32[0][:, 0] = 0.0          # a zero-scale row folds to exactly 0
+            qs, ss = map(list, zip(*(quantize(torch, g) for g in g32)))
+            entry, leaves = adel_agg_q8_grouped, qs
+            kern = (lambda: adel_agg_q8_grouped(qs, ss, ids, c))
+            plain = (lambda: adel_agg_q8_grouped_plain(qs, ss, ids_dev, c))
+            nbytes = sum(q8_bytes(U_MAIN, q.shape[1], q.shape[2]) for q in qs)
+        else:
+            leaves = [g.to(tdt) for g in g32]
+            entry = adel_agg_grouped
+            kern = (lambda: adel_agg_grouped(leaves, ids, c))
+            plain = (lambda: adel_agg_grouped_plain(leaves, ids_dev, c))
+            nbytes = sum(agg_bytes(U_MAIN, x.shape[1], x.shape[2],
+                                   x.element_size()) for x in leaves)
+        before = entry.launches
+        outs = kern()
+        n_launch = entry.launches - before
+        check(n_launch == -(-70 // table_leaves(leaves[0].element_size())),
+              f"the 70-leaf table took {n_launch} {entry.__name__} launches")
+        refs = plain()
         n_el = sum(x.numel() for x in leaves)
         rtol, atol = TOL[dtype]
         err = max(float((o.float() - r.float()).abs().max())
@@ -276,27 +294,24 @@ def kernel_cases(torch, leaf_F: dict) -> list:
         ok = all(bool(((o.float() - r.float()).abs()
                        <= atol + rtol * r.float().abs()).all())
                  for o, r in zip(outs, refs))
-        row = {"kernel": "adel_agg", "case": "table70", "dtype": dtype,
+        row = {"kernel": "adel_agg_q8" if dtype == "q8" else "adel_agg",
+               "case": "table70", "dtype": dtype,
                "U": U_MAIN, "L": L, "F": n_el // U_MAIN,
                "max_abs_err": err, "rtol": rtol, "atol": atol, "ok": ok,
-               "kernel_ms": graph_ms(torch, lambda: adel_agg_grouped(
-                   leaves, ids, c)),
-               "call_ms": call_ms(torch, lambda: adel_agg_grouped(
-                   leaves, ids, c)),
-               "plain_ms": graph_ms(torch, lambda: adel_agg_grouped_plain(
-                   leaves, ids_dev, c)),
+               "kernel_ms": graph_ms(torch, kern),
+               "call_ms": call_ms(torch, kern),
+               "plain_ms": graph_ms(torch, plain),
                "library_ms": None,
-               "bound_ms": bound_ms(sum(agg_bytes(U_MAIN, x.shape[1],
-                                                  x.shape[2],
-                                                  x.element_size())
-                                        for x in leaves), 2 * n_el)}
-        print(f"[kernel] adel_agg_grouped table70 {dtype:4s} leaves=70 "
-              f"launches=2 max_abs_err={err:.3e} tol=rtol {rtol:g}/atol "
+               "bound_ms": bound_ms(nbytes, 2 * n_el)}
+        print(f"[kernel] {entry.__name__} table70 {dtype:4s} leaves=70 "
+              f"launches={n_launch} max_abs_err={err:.3e} tol=rtol {rtol:g}/atol "
               f"{atol:g} kernel_ms={row['kernel_ms']:.5f} call_ms="
               f"{row['call_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
               f"bound_ms={row['bound_ms']:.5f} {'ok' if ok else 'FAIL'}",
               flush=True)
-        check(ok, f"adel_agg_grouped 70-leaf table {dtype} disagrees: {err}")
+        check(ok, f"{entry.__name__} 70-leaf table {dtype} disagrees: {err}")
+        check(dtype != "q8" or bool((outs[0][0] == 0).all()),
+              "a zero-scale row of the grouped int8 fold is not exactly 0")
         rows.append(row)
 
     # zero-coefficient rows: those clients contribute nothing
@@ -319,14 +334,18 @@ def kernel_cases(torch, leaf_F: dict) -> list:
 
 def fold_round(torch, leaf_F: dict) -> dict:
     """One round's fold on the main path: all 38 VGG-11 leaves at U=10, as
-    the runtime issues them: f32 in one ``adel_agg_grouped`` launch, each
-    leaf's weights read from the (U, 38) coefficients through its layer id;
-    int8 through ``adel_agg_q8``, one launch a leaf. Timed as one CUDA graph
-    (the inputs, 390 MB in f32, do not fit in the 50 MB L2) beside the
-    plain versions and the 38 ``torch.einsum`` calls."""
+    the runtime issues them: f32 in one ``adel_agg_grouped`` launch and
+    int8 in one ``adel_agg_q8_grouped`` launch, each leaf's weights read
+    from the (U, 38) coefficients through its layer id. Timed as one CUDA
+    graph (the f32 inputs, 390 MB, do not fit in the 50 MB L2; the int8
+    ones, 98 MB, neither) beside the plain versions, the 38 ``torch.einsum``
+    calls (f32) and the 38 per-leaf ``adel_agg_q8`` launches that folded an
+    int8 round before the grouped entry (``adel_agg_q8 per-leaf``)."""
     from repro_torch.kernels.adel_agg import (adel_agg_grouped,
                                               adel_agg_grouped_plain,
-                                              adel_agg_q8, adel_agg_q8_plain)
+                                              adel_agg_q8, adel_agg_q8_grouped,
+                                              adel_agg_q8_grouped_plain,
+                                              adel_agg_q8_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
     sizes = [F for F, n in leaf_F.items() for _ in range(n)]
     coeff = torch.rand((U_MAIN, len(sizes)), generator=gen, device="cuda")
@@ -336,30 +355,45 @@ def fold_round(torch, leaf_F: dict) -> dict:
         g = torch.randn((U_MAIN, 1, F), generator=gen, device="cuda")
         leaves.append((g, coeff[:, k:k + 1].contiguous()) + quantize(torch, g))
     grads = [a[0] for a in leaves]
+    qs, ss = [a[2] for a in leaves], [a[3] for a in leaves]
     n_el = sum(g.numel() for g in grads)
     F_tot = n_el // U_MAIN
-    before = adel_agg_grouped.launches
-    outs = adel_agg_grouped(grads, ids, coeff)
-    check(adel_agg_grouped.launches - before == 1,
-          "the 38 VGG-11 leaves did not fold in one grouped launch")
+    for entry, fold in ((adel_agg_grouped,
+                         lambda: adel_agg_grouped(grads, ids, coeff)),
+                        (adel_agg_q8_grouped,
+                         lambda: adel_agg_q8_grouped(qs, ss, ids, coeff))):
+        before = entry.launches
+        fold()
+        check(entry.launches - before == 1,
+              f"the 38 VGG-11 leaves did not fold in one {entry.__name__} "
+              "launch")
+    q8_round_bytes = sum(q8_bytes(U_MAIN, 1, g.shape[2]) for g in grads)
     fns = {
         "adel_agg": (
+            "1 grouped launch",
             lambda: adel_agg_grouped(grads, ids, coeff),
             lambda: adel_agg_grouped_plain(grads, ids, coeff),
             lambda: [torch.einsum("ul,ulf->lf", c, g) for g, c, *_ in leaves],
             sum(agg_bytes(U_MAIN, 1, g.shape[2], 4) for g in grads),
-            [(o, r) for o, r in zip(outs, adel_agg_grouped_plain(
-                grads, ids, coeff))]),
+            list(zip(adel_agg_grouped(grads, ids, coeff),
+                     adel_agg_grouped_plain(grads, ids, coeff)))),
         "adel_agg_q8": (
+            "1 grouped launch",
+            lambda: adel_agg_q8_grouped(qs, ss, ids, coeff),
+            lambda: adel_agg_q8_grouped_plain(qs, ss, ids, coeff),
+            None, q8_round_bytes,
+            list(zip(adel_agg_q8_grouped(qs, ss, ids, coeff),
+                     adel_agg_q8_grouped_plain(qs, ss, ids, coeff)))),
+        "adel_agg_q8 per-leaf": (
+            "38 launches",
             lambda: [adel_agg_q8(q, s, c) for g, c, q, s in leaves],
             lambda: [adel_agg_q8_plain(q, s, c) for g, c, q, s in leaves],
-            None,
-            sum(q8_bytes(U_MAIN, 1, g.shape[2]) for g in grads),
+            None, q8_round_bytes,
             [(adel_agg_q8(q, s, c), adel_agg_q8_plain(q, s, c))
              for g, c, q, s in leaves]),
     }
     out = {}
-    for name, (kern, plain, lib, nbytes, pairs) in fns.items():
+    for name, (launches, kern, plain, lib, nbytes, pairs) in fns.items():
         err = max(float((o - r).abs().max()) for o, r in pairs)
         rnd = {"ms": graph_ms(torch, kern, reps=3),
                "call_ms": call_ms(torch, kern, iters=5, warmup=2),
@@ -368,8 +402,7 @@ def fold_round(torch, leaf_F: dict) -> dict:
                                                                reps=3),
                "bound_ms": bound_ms(nbytes, 2 * n_el), "max_abs_err": err,
                "bytes": nbytes}
-        launches = "1 grouped launch" if name == "adel_agg" else "38 launches"
-        print(f"[fold round] {name:11s} 38 leaves ({launches}) U={U_MAIN} "
+        print(f"[fold round] {name} 38 leaves ({launches}) U={U_MAIN} "
               f"F_total={F_tot} bytes={nbytes} max_abs_err={err:.3e} "
               + " ".join(f"{k}={'null' if v is None else f'{v:.5f}'}"
                          for k, v in rnd.items()
@@ -377,6 +410,8 @@ def fold_round(torch, leaf_F: dict) -> dict:
         check(err <= 1e-5 * (1 + max(float(r.abs().max()) for _, r in pairs)),
               f"{name} round fold disagrees with its plain version: {err}")
         out[name] = rnd
+    check(out["adel_agg_q8"]["ms"] < out["adel_agg_q8 per-leaf"]["ms"],
+          "the grouped int8 round is not faster than its 38 launches")
     return out
 
 
@@ -392,7 +427,7 @@ def vgg_runs(torch) -> dict:
     from repro_torch.fl.partition import dirichlet_partition, stack_clients
     from repro_torch.fl.server import run_federated
     from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
-                                              adel_agg_q8)
+                                              adel_agg_q8, adel_agg_q8_grouped)
     from repro_torch.models.paper_models import make_vgg
 
     x_tr, y_tr, x_te, y_te = make_image_dataset("cifar", seed=0)
@@ -411,27 +446,25 @@ def vgg_runs(torch) -> dict:
           f"S_max={int(schedule.batch_sizes(cfg).max())}", flush=True)
     policy = make_policy("adel", cfg, schedule=schedule, device="cuda")
     launches = {}
-    # uncompressed: one grouped launch folds a round's 38 f32 leaves; int8:
-    # one adel_agg_q8 launch a leaf
-    for comp, kernel, per_round in ((None, adel_agg_grouped, 1),
-                                    ("int8", adel_agg_q8, 38)):
+    counters = (adel_agg_grouped, adel_agg_q8_grouped, adel_agg_q8, adel_agg)
+    # one grouped launch folds a round's 38 leaves: f32 uncompressed, int8
+    # codes compressed
+    for comp, kernel in ((None, adel_agg_grouped),
+                         ("int8", adel_agg_q8_grouped)):
         stamps = []
 
         def on_round(t, params, hist):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
 
-        adel_agg.launches = 0
-        adel_agg_grouped.launches = 0
-        adel_agg_q8.launches = 0
+        for k in counters:
+            k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, hist = run_federated(model, policy, cfg, cx, cy, counts, x_te, y_te,
                                 seed=0, eval_every=R - 1, compression=comp,
                                 on_round=on_round, device="cuda")
-        fired = {"adel_agg_grouped": adel_agg_grouped.launches,
-                  "adel_agg_q8": adel_agg_q8.launches,
-                  "adel_agg": adel_agg.launches}
+        fired = {k.__name__: k.launches for k in counters}
         wall = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
         rounds = len(stamps)
         name = "none" if comp is None else comp
@@ -443,19 +476,22 @@ def vgg_runs(torch) -> dict:
         check(all(math.isfinite(v) for v in hist.accuracy + hist.train_loss),
               "VGG-11 loss or accuracy not finite")
         own = fired.pop(kernel.__name__)
-        check(own == per_round * rounds,
-              f"{kernel.__name__} launched {own} times, not {per_round} x "
-              f"{rounds}")
+        check(own == rounds,
+              f"{kernel.__name__} launched {own} times, not once in each of "
+              f"{rounds} rounds")
         check(not any(fired.values()),
               f"another fold kernel ran in this path: {fired}")
         launches["adel_agg" if comp is None else "adel_agg_q8"] = own
-    profile_rounds(torch, model, policy, cfg, (cx, cy, counts, x_te, y_te))
+    for comp in (None, "int8"):
+        profile_rounds(torch, model, policy, cfg, (cx, cy, counts, x_te, y_te),
+                       comp)
     return launches
 
 
-def profile_rounds(torch, model, policy, cfg, data) -> None:
+def profile_rounds(torch, model, policy, cfg, data, comp) -> None:
     """Where a steady-state round's time goes: ``torch.profiler`` over the
-    rounds between the first and the last (which evaluate), uncompressed."""
+    rounds between the first and the last (which evaluate), with payloads
+    compressed by ``comp`` (None or "int8")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -475,23 +511,25 @@ def profile_rounds(torch, model, policy, cfg, data) -> None:
             prof.stop()
 
     run_federated(model, policy, cfg, *data, seed=0, eval_every=R - 1,
-                  on_round=on_round, device="cuda")
+                  compression=comp, on_round=on_round, device="cuda")
     wall_ms = 1e3 * (window["t1"] - window["t0"])
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    fold_ms = sum(e.self_device_time_total for e in kernels
-                  if "fold_kernel" in e.key or "fold_grouped_kernel" in e.key
-                  ) / 1e3
+    fold = [e for e in kernels if re.search(r"fold_\w*kernel", e.key)]
+    fold_ms = sum(e.self_device_time_total for e in fold) / 1e3
     n = R - 2
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[vgg11 profile] rounds 2..{R - 1} ({n}): wall_ms_per_round="
+    tag = f"[vgg11 profile {'none' if comp is None else comp}]"
+    print(f"{tag} rounds 2..{R - 1} ({n}): wall_ms_per_round="
           f"{wall_ms / n:.3f} device_busy_ms_per_round={busy_ms / n:.3f} "
           f"idle_share={1 - busy_ms / wall_ms:.4f} fold_kernel_ms_per_round="
-          f"{fold_ms / n:.4f} fold_share_of_busy={fold_ms / busy_ms:.4f}",
-          flush=True)
+          f"{fold_ms / n:.4f} fold_share_of_busy={fold_ms / busy_ms:.4f} "
+          f"fold_launches_per_round={sum(e.count for e in fold) / n:g} "
+          f"device_kernel_launches_per_round="
+          f"{sum(e.count for e in kernels) / n:g}", flush=True)
     for e in top:
-        print(f"[vgg11 profile]   {e.self_device_time_total / 1e3 / n:9.4f} "
+        print(f"{tag}   {e.self_device_time_total / 1e3 / n:9.4f} "
               f"ms/round x{e.count // n:<4d} {e.key[:90]}", flush=True)
     check(busy_ms > 0, "the profiler saw no device time")
 
@@ -728,9 +766,10 @@ def build_report() -> None:
         text = report.read_text() if report.is_file() else "no ptxas report"
         for line in text.splitlines():
             found = re.search(r"Compiling entry function '\w*?((?:fold|flash|"
-                              r"ssd_scan)_[a-z_]*?)((?:I|E)\w*)'", line)
+                              r"ssd_scan)_[a-z0-9_]*?)((?:I|E)\w*)'", line)
             if found:   # the name and its mangled template arguments
-                kernel = found[1] + found[2].split("EEv")[0].split("Ev")[0]
+                kernel = found[1] + (found[2].split("EEv")[0].split("Ev")[0]
+                                     if found[2][0] == "I" else "")
             elif kernel and ("spill" in line or "registers" in line):
                 print(f"[build] {lib}: {kernel}: {line.strip()}", flush=True)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -941,6 +980,8 @@ def main() -> int:
 
     replaces = {"adel_agg": "src/repro/kernels/adel_agg.py:34",
                 "adel_agg_q8": "src/repro/kernels/adel_agg.py:76"}
+    entries = {"adel_agg": "adel_agg_grouped (fold_grouped_kernel)",
+               "adel_agg_q8": "adel_agg_q8_grouped (fold_grouped_q8_kernel)"}
     kernels = []
     for name in ("adel_agg", "adel_agg_q8"):
         rnd = per_round[name]
@@ -952,12 +993,13 @@ def main() -> int:
                 r["max_abs_err"] for r in rows if r["kernel"] == name]),
             "ms": rnd["ms"], "plain_ms": rnd["plain_ms"],
             "bound_ms": rnd["bound_ms"], "bound_by": "bytes",
-            "library_ms": rnd["library_ms"],
+            "library_ms": rnd["library_ms"], "call_ms": rnd["call_ms"],
+            "entry": entries[name],
             "shapes": "one round's fold: 38 VGG-11 leaves at U=10, "
-                      + ("f32, one adel_agg_grouped launch"
-                         if name == "adel_agg" else "int8, 38 launches"),
+                      + ("f32" if name == "adel_agg" else "int8")
+                      + ", one grouped launch",
             "card": card})
-    kernels[0]["entry"] = "adel_agg_grouped (fold_grouped_kernel)"
+    kernels[1]["per_leaf_ms"] = per_round["adel_agg_q8 per-leaf"]["ms"]
     lm_replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                    "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
     for name, main_case in (("flash_attention", ("hymba", "bf16")),

@@ -11,8 +11,11 @@ in PyTorch (port of ``repro.core.compression``).
 Every leaf is handled in the canonical kernel layout (U, L_leaf, F)
 (:func:`repro_torch.kernels.ops.leaf_dims`). Aggregation folds the Eq. 5
 coefficient into the dequant scale, so dequantize + weight + accumulate is
-one pass: the hand-written ``adel_agg_q8`` kernel for int8, a plain
-``scatter_add_`` for topk8 (the reference keeps that a jnp scatter too).
+one pass: for int8 every leaf of the payload in one call of the
+hand-written grouped kernel ``adel_agg_q8_grouped`` (one launch a round on
+the card, each leaf's weights read from the (U, L) coefficients through its
+layer ids), a plain ``scatter_add_`` per leaf for topk8 (the reference
+keeps that a jnp scatter too).
 
 The payload is a flat list, in params-tree leaf order (dict keys sorted,
 as ``jax.tree.flatten``), of per-leaf tuples ``(q, scale)`` or
@@ -26,7 +29,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels.adel_agg import adel_agg_q8
+from repro_torch.kernels.adel_agg import adel_agg_q8_grouped
 from repro_torch.kernels.ops import leaf_coeff_rows, leaf_dims
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -102,20 +105,16 @@ def compress_deltas(deltas: PyTree, layer_ids: PyTree,
             for g, i in zip(tree_leaves(deltas), tree_leaves(layer_ids))]
 
 
-def _agg_leaf(entry, shape, ids, c: torch.Tensor,
-              cfg: CompressionConfig) -> torch.Tensor:
+def _agg_topk(entry, shape, ids, c: torch.Tensor) -> torch.Tensor:
     w = leaf_coeff_rows(c, ids)                                  # (U, Ll)
     Ll, F = leaf_dims(shape, ids)
-    if cfg.mode == "topk8":
-        q, scale, idx = entry
-        U, _, k = q.shape
-        contrib = (w * scale)[..., None] * q.to(torch.float32)   # (U, Ll, k)
-        out = torch.zeros((Ll, F), dtype=torch.float32, device=q.device)
-        out.scatter_add_(1, idx.permute(1, 0, 2).reshape(Ll, U * k).long(),
-                         contrib.permute(1, 0, 2).reshape(Ll, U * k))
-        return out.reshape(shape)
-    q, scale = entry
-    return adel_agg_q8(q.contiguous(), scale, w).reshape(shape)
+    q, scale, idx = entry
+    U, _, k = q.shape
+    contrib = (w * scale)[..., None] * q.to(torch.float32)       # (U, Ll, k)
+    out = torch.zeros((Ll, F), dtype=torch.float32, device=q.device)
+    out.scatter_add_(1, idx.permute(1, 0, 2).reshape(Ll, U * k).long(),
+                     contrib.permute(1, 0, 2).reshape(Ll, U * k))
+    return out.reshape(shape)
 
 
 def aggregate_compressed(payload: list, params: PyTree, layer_ids: PyTree,
@@ -135,9 +134,14 @@ def aggregate_compressed(payload: list, params: PyTree, layer_ids: PyTree,
     if coeffs is None:
         coeffs = layer_coefficients(mask, p, bias_correct=bias_correct,
                                     counts=counts)
-    out = [_agg_leaf(e, pl.shape, i, coeffs, cfg)
-           for e, pl, i in zip(payload, tree_leaves(params),
-                               tree_leaves(layer_ids))]
+    leaves, ids = tree_leaves(params), tree_leaves(layer_ids)
+    if cfg.mode == "topk8":
+        out = [_agg_topk(e, pl.shape, i, coeffs)
+               for e, pl, i in zip(payload, leaves, ids)]
+    else:
+        folded = adel_agg_q8_grouped([q.contiguous() for q, _ in payload],
+                                     [s for _, s in payload], ids, coeffs)
+        out = [o.reshape(pl.shape) for o, pl in zip(folded, leaves)]
     return tree_unflatten(params, out)
 
 

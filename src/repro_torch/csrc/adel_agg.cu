@@ -46,6 +46,29 @@
 //     aligned, or whose length is not a multiple of the vector, take the
 //     scalar path (kVecs * VN elements a thread, neighbouring threads on
 //     neighbouring elements).
+//
+// adel_agg_q8_grouped folds every int8 leaf of a compressed round in one
+// launch (fold_grouped_q8_kernel; adel_agg_q8's per-leaf fold_kernel stays
+// the single-tensor entry). It is the grouped fold above with the int8
+// wire format:
+//   * a table entry is a FoldLeaf plus the leaf's (U, rows) f32 scales;
+//     at 64 bytes an entry, kMaxLeavesQ8 = 63 leaves fill the 4 KB of
+//     kernel parameters (checked at build time);
+//   * the weight of client u for row r is coeff[u, id(r)] * scales[u, r],
+//     formed in f32 as the TPU kernel's _kernel_q8 forms c * s;
+//   * a 16-byte load brings 16 int8 codes; each becomes f32 exactly by a
+//     byte permute into the mantissa of 2^23 and one subtraction
+//     (unpack_q8), not by the quarter-rate I2F conversion; a thread owns
+//     kVecsQ8 = 1 such vector (a 4,096-code tile a block; on an H100 two
+//     vectors took 114-122 registers and a VGG-11 round 36-39% longer)
+//     and loads kUnroll clients ahead; its f32 sums stay in registers;
+//   * each vector writes 64 bytes of f32; a warp stages its 2 KB through
+//     shared memory and stores it coalesced (on an H100 a VGG-11 round
+//     takes 14-16% less time than with four 16-byte stores a lane, 64 bytes
+//     apart; scripts/probe_fold_q8.py times both);
+//   * the bytes are small (a VGG-11 round: 97.6 MB of codes, 39.0 MB of
+//     f32 out), so what one launch a round saves is the 38 launches' gaps
+//     and partly idle blocks of the small leaves.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -174,11 +197,41 @@ struct FoldLeaf {
   int vec;             // 1: x and out 16-byte aligned and F % VN == 0
 };
 
-struct FoldTable {
+// One int8 leaf: x is (U, rows, F) int8, out (rows, F) f32. Mirrored by
+// _FoldQ8Leaf in kernels/adel_agg.py.
+struct FoldQ8Leaf {
+  FoldLeaf leaf;
+  const float* scales; // (U, rows) f32, contiguous
+};
+
+__device__ __forceinline__ const FoldLeaf& base(const FoldLeaf& l) { return l; }
+__device__ __forceinline__ const FoldLeaf& base(const FoldQ8Leaf& l) { return l.leaf; }
+
+template <typename Leaf, int N>
+struct Table {
+  static constexpr int kLeaves = N;
   const float* coeff;  // (U, L) f32, contiguous
   int U, L, n, pad;
-  FoldLeaf leaf[kMaxLeaves];
+  Leaf leaf[N];
 };
+
+constexpr int kMaxLeavesQ8 = 63;  // int8 leaves one launch's table holds
+using FoldTable = Table<FoldLeaf, kMaxLeaves>;
+using FoldQ8Table = Table<FoldQ8Leaf, kMaxLeavesQ8>;
+static_assert(sizeof(FoldTable) <= 4096 && sizeof(FoldQ8Table) <= 4096,
+              "a leaf table must fit in the 4 KB of kernel parameters");
+
+// The leaf of block b: the last whose first block is <= b.
+template <typename Tab>
+__device__ __forceinline__ int find_leaf(const Tab& t, long long b) {
+  int lo = 0, hi = t.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (base(t.leaf[mid]).tile0 <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
 
 __device__ __forceinline__ void unpack16(const uint4 r, float* f, float) {
   f[0] = __uint_as_float(r.x);
@@ -216,15 +269,8 @@ __device__ __forceinline__ uint4 pack16(const float* f, __nv_bfloat16) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fold_grouped_kernel(const __grid_constant__ FoldTable t) {
-  // this block's leaf: the last whose first block is <= blockIdx.x
   const long long b = blockIdx.x;
-  int lo = 0, hi = t.n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (t.leaf[mid].tile0 <= b) lo = mid;
-    else hi = mid - 1;
-  }
-  const FoldLeaf& lf = t.leaf[lo];
+  const FoldLeaf& lf = t.leaf[find_leaf(t, b)];
   const long long local = b - lf.tile0;
   const int row = (int)(local / lf.tiles);
   constexpr int VN = 16 / (int)sizeof(T);
@@ -314,13 +360,158 @@ fold_grouped_kernel(const __grid_constant__ FoldTable t) {
   }
 }
 
-template <typename T>
-int launch_grouped(const FoldTable* table, long long blocks, void* stream) {
-  if (table->n < 1 || table->n > kMaxLeaves || blocks < 1 ||
+// ---------------------------------------------------------------------------
+// the grouped int8 fold
+// ---------------------------------------------------------------------------
+
+constexpr int kVecsQ8 = 1;       // 16-int8 vectors a thread owns in a row
+
+// 16 int8 codes -> f32, exactly: code c, biased to c + 128 (the sign bit
+// flipped), is permuted into the low byte of 0x4B000000 = 2^23, whose
+// mantissa then holds it, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void unpack_q8(const uint4 r, float* f) {
+  const unsigned w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u,
+                         r.z ^ 0x80808080u, r.w ^ 0x80808080u};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * k + j] = __uint_as_float(__byte_perm(w[k], 0x4B000000u,
+                                                 0x7440u + j)) - 8388736.f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fold_grouped_q8_kernel(const __grid_constant__ FoldQ8Table t) {
+  const long long b = blockIdx.x;
+  const FoldQ8Leaf& lq = t.leaf[find_leaf(t, b)];
+  const FoldLeaf& lf = lq.leaf;
+  const long long local = b - lf.tile0;
+  const int row = (int)(local / lf.tiles);
+  constexpr int VN = 16;
+  constexpr int E = kVecsQ8 * VN;              // codes a thread owns
+  const long long F = lf.F;
+  const long long f0 = (local - (long long)row * lf.tiles) * (kThreads * E);
+  const long long cstride = (long long)lf.rows * F;   // between clients
+  const int8_t* src = static_cast<const int8_t*>(lf.x) + (long long)row * F;
+  float* dst = static_cast<float*>(lf.out) + (long long)row * F;
+  // weight of client u: coeff[u, id] * scales[u, row]
+  const float* cw = t.coeff + (lf.ids ? lf.ids[row] : lf.id0 + row);
+  const float* sw = lq.scales + row;
+  const int U = t.U;
+  const long long L = t.L, rows = lf.rows;
+
+  if (lf.vec) {
+    // vector k of this thread starts at code f0 + (k * kThreads + tid) * 16;
+    // F % 16 == 0, so a vector lies wholly inside or wholly past the row
+    long long f[kVecsQ8];
+    bool in[kVecsQ8];
+#pragma unroll
+    for (int k = 0; k < kVecsQ8; ++k) {
+      f[k] = f0 + ((long long)k * kThreads + threadIdx.x) * VN;
+      in[k] = f[k] < F;
+    }
+    if (!in[0]) return;
+    float acc[kVecsQ8][VN];
+#pragma unroll
+    for (int k = 0; k < kVecsQ8; ++k)
+#pragma unroll
+      for (int i = 0; i < VN; ++i) acc[k][i] = 0.f;
+    int u = 0;
+    for (; u + kUnroll <= U; u += kUnroll) {
+      uint4 v[kUnroll][kVecsQ8];
+      float wu[kUnroll];
+#pragma unroll
+      for (int a = 0; a < kUnroll; ++a) {
+        wu[a] = __ldg(cw + (u + a) * L) * __ldg(sw + (u + a) * rows);
+#pragma unroll
+        for (int k = 0; k < kVecsQ8; ++k)
+          v[a][k] = in[k] ? __ldg(reinterpret_cast<const uint4*>(
+                                src + (u + a) * cstride + f[k]))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int a = 0; a < kUnroll; ++a)
+#pragma unroll
+        for (int k = 0; k < kVecsQ8; ++k) {
+          float x[VN];
+          unpack_q8(v[a][k], x);
+#pragma unroll
+          for (int i = 0; i < VN; ++i) acc[k][i] = fmaf(wu[a], x[i], acc[k][i]);
+        }
+    }
+    for (; u < U; ++u) {
+      const float wu = __ldg(cw + u * L) * __ldg(sw + u * rows);
+#pragma unroll
+      for (int k = 0; k < kVecsQ8; ++k) {
+        if (!in[k]) continue;
+        float x[VN];
+        unpack_q8(__ldg(reinterpret_cast<const uint4*>(src + u * cstride + f[k])),
+                  x);
+#pragma unroll
+        for (int i = 0; i < VN; ++i) acc[k][i] = fmaf(wu, x[i], acc[k][i]);
+      }
+    }
+    // a vector's 16 sums are 64 bytes of f32; stored from registers, lanes
+    // 64 bytes apart would each write a quarter of a warp's 2 KB span per
+    // 16-byte store. A warp whose 32 vectors lie wholly inside the row
+    // stages them through shared memory (swizzled: no bank conflicts on
+    // either side) and stores the 2 KB as four coalesced 512-byte rows.
+    __shared__ uint4 stage[kThreads / 32][32 * VN / 4];
+    uint4* st = stage[threadIdx.x >> 5];
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < kVecsQ8; ++k) {
+      if (!in[k]) continue;
+      uint4* d = reinterpret_cast<uint4*>(dst + f[k]);
+      if (f0 + ((long long)k * kThreads + (threadIdx.x | 31) + 1) * VN <= F) {
+#pragma unroll
+        for (int j = 0; j < VN / 4; ++j)
+          st[lane * 4 + ((j + (lane >> 1)) & 3)] = pack16(acc[k] + 4 * j, float());
+        __syncwarp();
+        uint4* dw = d - lane * (VN / 4);            // the warp's first vector
+#pragma unroll
+        for (int i = 0; i < VN / 4; ++i) {
+          const int m = i * 32 + lane;              // from lane m / 4
+          dw[m] = st[(m & ~3) + (((m & 3) + (m >> 3)) & 3)];
+        }
+        __syncwarp();
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < VN / 4; ++j) d[j] = pack16(acc[k] + 4 * j, float());
+    }
+    return;
+  }
+  // scalar path: code k of this thread is f0 + k * kThreads + tid
+  float acc[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) acc[k] = 0.f;
+  for (int u = 0; u < U; ++u) {
+    const float wu = __ldg(cw + u * L) * __ldg(sw + u * rows);
+    const int8_t* s = src + u * cstride;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const long long f = f0 + (long long)k * kThreads + threadIdx.x;
+      if (f < F) acc[k] = fmaf(wu, to_f32(s[f]), acc[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const long long f = f0 + (long long)k * kThreads + threadIdx.x;
+    if (f < F) dst[f] = acc[k];
+  }
+}
+
+// One launch over a table, or cudaErrorInvalidValue for a table the kernel
+// does not take.
+template <typename Tab>
+int launch_table(void (*kernel)(const Tab), const Tab* table,
+                 long long blocks, void* stream) {
+  if (table->n < 1 || table->n > Tab::kLeaves || blocks < 1 ||
       blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  fold_grouped_kernel<T><<<(unsigned)blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(*table);
+  kernel<<<(unsigned)blocks, kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(*table);
   return (int)cudaGetLastError();
 }
 
@@ -331,13 +522,13 @@ extern "C" {
 // The grouped fold of kernels/adel_agg.py:adel_agg_grouped: one launch over
 // a table of leaves of one dtype; returns a cudaError_t (0 = launched).
 int adel_agg_grouped_f32(const void* table, long long blocks, void* stream) {
-  return launch_grouped<float>(static_cast<const FoldTable*>(table), blocks,
-                               stream);
+  return launch_table(fold_grouped_kernel<float>,
+                      static_cast<const FoldTable*>(table), blocks, stream);
 }
 
 int adel_agg_grouped_bf16(const void* table, long long blocks, void* stream) {
-  return launch_grouped<__nv_bfloat16>(static_cast<const FoldTable*>(table),
-                                       blocks, stream);
+  return launch_table(fold_grouped_kernel<__nv_bfloat16>,
+                      static_cast<const FoldTable*>(table), blocks, stream);
 }
 
 // sizeof(FoldTable), kMaxLeaves and the elements of a feature tile (f32,
@@ -345,6 +536,17 @@ int adel_agg_grouped_bf16(const void* table, long long blocks, void* stream) {
 long long adel_agg_grouped_table_bytes() { return (long long)sizeof(FoldTable); }
 int adel_agg_grouped_max_leaves() { return kMaxLeaves; }
 int adel_agg_grouped_tile(int itemsize) { return kThreads * kVecs * (16 / itemsize); }
+
+// The grouped int8 fold of kernels/adel_agg.py:adel_agg_q8_grouped, and
+// its table's size, leaves and feature tile (int8 codes a block folds).
+int adel_agg_q8_grouped(const void* table, long long blocks, void* stream) {
+  return launch_table(fold_grouped_q8_kernel,
+                      static_cast<const FoldQ8Table*>(table), blocks, stream);
+}
+
+long long adel_agg_q8_grouped_table_bytes() { return (long long)sizeof(FoldQ8Table); }
+int adel_agg_q8_grouped_max_leaves() { return kMaxLeavesQ8; }
+int adel_agg_q8_grouped_tile() { return kThreads * kVecsQ8 * 16; }
 
 
 int adel_agg_f32(const void* grads, const void* coeff, void* out, int U, int L,

@@ -4,11 +4,11 @@
 :class:`repro_torch.fl.runtime.RoundRuntime` plans a round and hands the
 round inputs to an :class:`ExecutionBackend`, which computes and
 aggregates the cohort's client updates. This slice ports
-:class:`DenseBackend`: the whole cohort in one ``torch.func.vmap`` and one
-Eq. 5 fold per leaf through the hand-written kernels —
-``core.aggregation.aggregate_grads`` (``adel_agg``) uncompressed,
-``core.compression.aggregate_compressed`` (``adel_agg_q8`` for int8, a
-plain scatter-add for topk8) compressed. The reference's other backends
+:class:`DenseBackend`: the whole cohort in one ``torch.func.vmap`` and the
+Eq. 5 fold of every leaf through the hand-written grouped kernels —
+``core.aggregation.aggregate_grads`` (``adel_agg_grouped``) uncompressed,
+``core.compression.aggregate_compressed`` (``adel_agg_q8_grouped`` for
+int8, a plain scatter-add per leaf for topk8) compressed. The reference's other backends
 (chunked, shard_map, temporal, buffered, hierarchical) wait for later
 slices (ROADMAP.md, items 1.8-1.9).
 """
@@ -65,7 +65,7 @@ class ExecutionBackend:
 
 
 class DenseBackend(ExecutionBackend):
-    """Whole cohort in one vmap + one Eq. 5 fold per leaf."""
+    """Whole cohort in one vmap + one grouped Eq. 5 fold a round."""
 
     name = "dense"
 

@@ -4,7 +4,8 @@ reference's Pallas path run in interpret mode.
 
 The block map is the host side of the one launch a round: a prefix sum of
 (rows x feature tiles) over the leaves of a table, and a binary search per
-block (``block_tile``, the kernel's own search written in Python). On these
+block (``block_tile``, the kernel's own search written in Python); at
+itemsize 1 it is the int8 fold's (``adel_agg_q8_grouped``). On these
 CPU tensors the fold computes its plain version (the CUDA kernel is held
 against the same plain version on the card by ``chip_smoke.py`` and
 ``tests/test_torch_gpu.py``). Tolerances: f32 rtol 2e-5 / atol 1e-6, as the
@@ -20,7 +21,8 @@ from repro.kernels.ops import adel_aggregate_pallas
 from repro_torch.core.aggregation import (aggregate_with_coeffs,
                                           layer_coefficients)
 from repro_torch.kernels.adel_agg import (MAX_LEAVES, adel_agg_grouped,
-                                          block_tile, fold_plan, fold_tile)
+                                          block_tile, fold_plan, fold_tile,
+                                          table_leaves)
 from repro_torch.kernels.ops import adel_aggregate
 
 # every VGG-11 leaf at full width, in leaf order (whole-tensor leaves)
@@ -42,7 +44,7 @@ def _covered(dims, itemsize):
     """{(leaf, row, tile): times} over every block of every launch."""
     seen: dict = {}
     for entries, blocks in fold_plan(dims, itemsize):
-        assert len(entries) <= MAX_LEAVES
+        assert len(entries) <= table_leaves(itemsize) <= MAX_LEAVES
         assert blocks == sum(e.rows * e.tiles for e in entries)
         for b in range(blocks):
             key = block_tile(entries, b)
@@ -51,7 +53,7 @@ def _covered(dims, itemsize):
 
 
 @pytest.mark.parametrize("table", sorted(TABLES))
-@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
 def test_block_map_covers_every_tile_once(table, itemsize):
     """Every (leaf, layer row, feature tile) is folded by exactly one block,
     and no block falls outside a leaf."""
@@ -69,6 +71,10 @@ def test_block_map_launches_per_table():
     plan = fold_plan(TABLES["more_than_a_table"], 4)
     assert len(plan) == 3
     assert [len(e) for e, _ in plan] == [MAX_LEAVES, MAX_LEAVES, 9]
+    # int8: 63 leaves a table; the plan is memoised (the same object)
+    plan8 = fold_plan(TABLES["more_than_a_table"], 1)
+    assert [len(e) for e, _ in plan8] == [63, 63, 11]
+    assert fold_plan(TABLES["more_than_a_table"], 1) is plan8
     vgg = fold_plan(TABLES["vgg11"], 4)
     assert len(vgg) == 1
     entries, blocks = vgg[0]
@@ -80,9 +86,12 @@ def test_block_map_launches_per_table():
 
 
 def test_fold_tile_is_the_kernels():
-    """threads x vectors x 16-byte vector, as csrc/adel_agg.cu has them."""
+    """threads x vectors x 16-byte vector, as csrc/adel_agg.cu has them;
+    int8 leaves: one 16-code vector a thread, 63 leaves a table."""
     assert fold_tile(4) == 256 * 2 * 4
     assert fold_tile(2) == 256 * 2 * 8
+    assert fold_tile(1) == 256 * 1 * 16
+    assert (table_leaves(4), table_leaves(2), table_leaves(1)) == (64, 64, 63)
 
 
 def _mixed_pytree(U, L, seed=0):

@@ -124,6 +124,38 @@ def test_adel_agg_grouped_matches_plain(cuda, table, dtype):
         assert _close(out, ref, **TOL[dtype]), (out.float() - ref.float()).abs().max()
 
 
+def _quantize(g):
+    """The wire's int8 absmax quantization of (U, L, F) deltas."""
+    amax = g.abs().amax(-1)
+    inv = torch.where(amax > 0, 127.0 / amax, torch.zeros_like(amax))
+    return torch.round(g * inv[..., None]).to(torch.int8), amax / 127.0
+
+
+@pytest.mark.parametrize("table", sorted(FOLD_TABLES))
+def test_adel_agg_q8_grouped_matches_plain(cuda, table):
+    """One grouped int8 launch per MAX_LEAVES_Q8 leaves, each leaf's weights
+    coeff[u, id] * scales[u, row]; a zero-scale row folds to exactly 0."""
+    from repro_torch.kernels.adel_agg import (MAX_LEAVES_Q8, adel_agg_q8,
+                                              adel_agg_q8_grouped,
+                                              adel_agg_q8_grouped_plain)
+    leaves, ids, c = _fold_leaves(cuda, FOLD_TABLES[table], torch.float32,
+                                  seed=2)
+    leaves[0][:, 0] = 0.0                       # a zero-scale row
+    c[3] = 0.0                                  # a zero-coefficient client
+    qs, scales = zip(*(_quantize(x) for x in leaves))
+    before = (adel_agg_q8_grouped.launches, adel_agg_q8.launches)
+    outs = adel_agg_q8_grouped(list(qs), list(scales), ids, c)
+    torch.cuda.synchronize()
+    assert (adel_agg_q8_grouped.launches - before[0],
+            adel_agg_q8.launches - before[1]) == (
+                -(-len(leaves) // MAX_LEAVES_Q8), 0)
+    refs = adel_agg_q8_grouped_plain(qs, scales, ids, c)
+    for out, ref, x in zip(outs, refs, leaves):
+        assert out.shape == x.shape[1:] and out.dtype == torch.float32
+        assert _close(out, ref, 1e-5, 1e-5), (out - ref).abs().max()
+    assert torch.equal(outs[0][0], torch.zeros_like(outs[0][0]))
+
+
 def test_kernel_wrappers_check_their_inputs(cuda):
     from repro_torch.kernels.adel_agg import adel_agg, adel_agg_q8
     g = torch.zeros((4, 2, 8), device=cuda)
@@ -146,13 +178,23 @@ def test_kernel_wrappers_check_their_inputs(cuda):
         adel_agg_grouped([g], [torch.tensor([0, 3])], c)         # id >= L
     with pytest.raises(TypeError):
         adel_agg_grouped([g.half()], [torch.arange(2)], c)
+    from repro_torch.kernels.adel_agg import adel_agg_q8_grouped
+    q, s = g.to(torch.int8), torch.zeros((4, 2), device=cuda)
+    with pytest.raises(TypeError):
+        adel_agg_q8_grouped([g], [s], [torch.arange(2)], c)      # not int8
+    with pytest.raises(ValueError):
+        adel_agg_q8_grouped([q], [s[:, :1]], [torch.arange(2)], c)  # scales
+    with pytest.raises(ValueError):
+        adel_agg_q8_grouped([q], [s], [torch.tensor([0, 3])], c)    # id >= L
+    with pytest.raises(ValueError):
+        adel_agg_q8_grouped([q], [s.cpu()], [torch.arange(2)], c)   # device
 
 
 @pytest.mark.parametrize("comp", [None, "int8"])
 def test_dense_round_on_card_matches_cpu(cuda, comp):
     from repro_torch.fl.backends import DenseBackend
     from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
-                                              adel_agg_q8)
+                                              adel_agg_q8, adel_agg_q8_grouped)
     from repro_torch.models.paper_models import make_cnn
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -171,10 +213,10 @@ def test_dense_round_on_card_matches_cpu(cuda, comp):
     p = torch.full((model.L,), 0.1)
     outs = {}
     # on the card: one grouped launch for the round's f32 leaves
-    # uncompressed, one adel_agg_q8 launch a leaf for int8
+    # uncompressed, one grouped int8 launch for int8
+    counters = (adel_agg_grouped, adel_agg_q8_grouped, adel_agg_q8, adel_agg)
     for dev in ("cpu", "cuda"):
-        launches = (adel_agg_grouped.launches, adel_agg_q8.launches,
-                    adel_agg.launches)
+        launches = [k.launches for k in counters]
         backend = DenseBackend(model, compression=comp, device=dev)
         with torch.backends.cudnn.flags(enabled=False):
             out = backend.run_round(tree_map(lambda a: a.to(dev), params),
@@ -182,11 +224,9 @@ def test_dense_round_on_card_matches_cpu(cuda, comp):
                                     bias_correct=True)
         outs[dev] = [a.cpu() for a in tree_leaves(out)]
         n = len(tree_leaves(params))
-        done = (adel_agg_grouped.launches - launches[0],
-                adel_agg_q8.launches - launches[1],
-                adel_agg.launches - launches[2])
-        expect = (0, 0, 0) if dev == "cpu" else (
-            (1, 0, 0) if comp is None else (0, n, 0))
+        done = tuple(k.launches - b for k, b in zip(counters, launches))
+        expect = (0, 0, 0, 0) if dev == "cpu" else (
+            (1, 0, 0, 0) if comp is None else (0, 1, 0, 0))
         assert done == expect, (dev, done)
     steps = [0.0] * n
     if comp == "int8":
@@ -216,6 +256,8 @@ def test_dense_round_fold_matches_plain_on_card(cuda, comp):
     from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
                                               adel_agg_grouped_plain,
                                               adel_agg_plain, adel_agg_q8,
+                                              adel_agg_q8_grouped,
+                                              adel_agg_q8_grouped_plain,
                                               adel_agg_q8_plain)
     from repro_torch.kernels.ops import leaf_coeff_rows, leaf_dims
     from repro_torch.models.paper_models import make_cnn
@@ -249,6 +291,10 @@ def test_dense_round_fold_matches_plain_on_card(cuda, comp):
             w = leaf_coeff_rows(c, i)
             assert _close(adel_agg_q8(q, s, w), adel_agg_q8_plain(q, s, w),
                           1e-5, 1e-5)
+        qs, scales = [q for q, _ in payload], [s for _, s in payload]
+        for out, ref in zip(adel_agg_q8_grouped(qs, scales, ids, c),
+                            adel_agg_q8_grouped_plain(qs, scales, ids, c)):
+            assert _close(out, ref, 1e-5, 1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -38,8 +38,22 @@
    (``adel_agg_grouped``, ``adel_agg_q8_grouped``). Two more runs, one of
    each, are profiled: device busy and idle time per round, the fold
    kernel's share, the top device kernels.
-6. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
-7. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
+6. The same cell through the other execution backends (``ExecSpec``):
+   the grouped folds at the widths they hand them (one client, a chunk of
+   4, a region of 5) against their plain versions; chunked
+   (``chunk_size=4``: 12 padded clients in 3 chunks), temporal and
+   hierarchical (``regions=2``), uncompressed and int8, 3 rounds each:
+   wall a round, the fold launches a round counted by ``torch.profiler``
+   (3 / 10 / 2 grouped launches, no other fold launch), and one round from
+   the same params, batches and mask within 1e-4 of the dense update;
+   HeteroFL on dense and chunked (finite losses, no fold launch: the
+   width-overlap mean is plain PyTorch, as in the reference; chunked
+   within 1e-4 of dense); and a dense round's host time by phase from the
+   tracer (rounds 2-4), against the traced and the untraced wall a round,
+   with the aggregate phase split into compress, fold and update by this
+   script's own synchronized timers.
+7. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
+8. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
    (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
    each LM kernel per prefill (an ``ssd_scan`` launch is one three-phase
    scan, four kernels) and finite (2, 32256) logits, then profiled (flash
@@ -47,7 +61,7 @@
    ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
    prefill (kernels) against stepping the decode path (plain) over 1152
    tokens, past the 1024 window, at full width cut to 4 blocks in f32.
-8. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+9. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -419,15 +433,15 @@ def fold_round(torch, leaf_F: dict) -> dict:
 # the main path
 # ---------------------------------------------------------------------------
 
-def vgg_runs(torch) -> dict:
+def vgg_setup(torch) -> dict:
+    """The VGG-11 cell: model at full width, synthetic CIFAR split over
+    U=10 Dirichlet(0.5) clients, the Fig.-3 regime's config and ADEL's
+    schedule from ``solve(cfg, "adam", steps=800)``."""
     from repro_torch.core.baselines import make_policy
     from repro_torch.core.scheduler import solve
     from repro_torch.core.types import AnalysisConfig
     from repro_torch.data.synthetic import make_image_dataset
     from repro_torch.fl.partition import dirichlet_partition, stack_clients
-    from repro_torch.fl.server import run_federated
-    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
-                                              adel_agg_q8, adel_agg_q8_grouped)
     from repro_torch.models.paper_models import make_vgg
 
     x_tr, y_tr, x_te, y_te = make_image_dataset("cifar", seed=0)
@@ -445,26 +459,44 @@ def vgg_runs(torch) -> dict:
           f"m={schedule.m:.4f} T={[round(float(v), 4) for v in schedule.T]} "
           f"S_max={int(schedule.batch_sizes(cfg).max())}", flush=True)
     policy = make_policy("adel", cfg, schedule=schedule, device="cuda")
+    return {"model": model, "cfg": cfg, "policy": policy,
+            "data": (cx, cy, counts, x_te, y_te)}
+
+
+def fold_counters() -> dict:
+    """Each fold wrapper, by name: its ``launches`` count."""
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_q8, adel_agg_q8_grouped)
+    return {k.__name__: k for k in (adel_agg_grouped, adel_agg_q8_grouped,
+                                    adel_agg_q8, adel_agg)}
+
+
+def vgg_runs(torch, vgg: dict) -> dict:
+    from repro_torch.fl.server import run_federated
+
+    model, cfg, policy = vgg["model"], vgg["cfg"], vgg["policy"]
+    cx, cy, counts, x_te, y_te = vgg["data"]
+    R = cfg.R
     launches = {}
-    counters = (adel_agg_grouped, adel_agg_q8_grouped, adel_agg_q8, adel_agg)
+    counters = fold_counters()
     # one grouped launch folds a round's 38 leaves: f32 uncompressed, int8
     # codes compressed
-    for comp, kernel in ((None, adel_agg_grouped),
-                         ("int8", adel_agg_q8_grouped)):
+    for comp, kernel in ((None, "adel_agg_grouped"),
+                         ("int8", "adel_agg_q8_grouped")):
         stamps = []
 
         def on_round(t, params, hist):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
 
-        for k in counters:
+        for k in counters.values():
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, hist = run_federated(model, policy, cfg, cx, cy, counts, x_te, y_te,
                                 seed=0, eval_every=R - 1, compression=comp,
                                 on_round=on_round, device="cuda")
-        fired = {k.__name__: k.launches for k in counters}
+        fired = {k: c.launches for k, c in counters.items()}
         wall = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
         rounds = len(stamps)
         name = "none" if comp is None else comp
@@ -475,9 +507,9 @@ def vgg_runs(torch) -> dict:
         check(rounds >= 2, "VGG-11 run executed fewer than 2 rounds")
         check(all(math.isfinite(v) for v in hist.accuracy + hist.train_loss),
               "VGG-11 loss or accuracy not finite")
-        own = fired.pop(kernel.__name__)
+        own = fired.pop(kernel)
         check(own == rounds,
-              f"{kernel.__name__} launched {own} times, not once in each of "
+              f"{kernel} launched {own} times, not once in each of "
               f"{rounds} rounds")
         check(not any(fired.values()),
               f"another fold kernel ran in this path: {fired}")
@@ -532,6 +564,326 @@ def profile_rounds(torch, model, policy, cfg, data, comp) -> None:
         print(f"{tag}   {e.self_device_time_total / 1e3 / n:9.4f} "
               f"ms/round x{e.count // n:<4d} {e.key[:90]}", flush=True)
     check(busy_ms > 0, "the profiler saw no device time")
+
+
+# ---------------------------------------------------------------------------
+# the other execution backends, HeteroFL, and the round's host time by phase
+# ---------------------------------------------------------------------------
+
+# (backend, ExecSpec knobs, grouped fold launches a round at U=10): chunked
+# pads 10 clients to 12 in 3 chunks of 4, temporal folds each client alone,
+# hierarchical folds each of 2 contiguous regions of 5
+BACKEND_CASES = (("chunked", {"chunk_size": 4}, 3), ("temporal", {}, 10),
+                 ("hierarchical", {"regions": 2}, 2))
+BACKEND_ROUNDS = 3
+# a backend's round against the dense backend's from the same params,
+# batches and mask, uncompressed or int8: max |difference| <= AGREE_UPDATE
+# * max |dense update| (f32 partials summed in another order; cuDNN may
+# pick other algorithms for a chunk of 4 than for a cohort of 10)
+AGREE_UPDATE = 1e-4
+
+
+def fold_slices(torch, leaf_F: dict) -> None:
+    """The grouped folds at the widths the other backends hand them: one
+    client (temporal: (1, L) coefficient rows), a region of 5
+    (hierarchical) and a chunk of 4 (chunked), all 38 VGG-11 leaves in f32
+    and int8, each against its plain version on the same CUDA tensors."""
+    from repro_torch.kernels.adel_agg import (adel_agg_grouped,
+                                              adel_agg_grouped_plain,
+                                              adel_agg_q8_grouped,
+                                              adel_agg_q8_grouped_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sizes = [F for F, n in leaf_F.items() for _ in range(n)]
+    ids = list(range(len(sizes)))
+    for U in (1, 4, 5):
+        coeff = torch.rand((U, len(sizes)), generator=gen, device="cuda")
+        grads = [torch.randn((U, 1, F), generator=gen, device="cuda")
+                 for F in sizes]
+        qs, ss = map(list, zip(*(quantize(torch, g) for g in grads)))
+        for name, (tol, _), pairs in (
+                ("adel_agg_grouped", TOL["f32"],
+                 zip(adel_agg_grouped(grads, ids, coeff),
+                     adel_agg_grouped_plain(grads, ids, coeff))),
+                ("adel_agg_q8_grouped", TOL["q8"],
+                 zip(adel_agg_q8_grouped(qs, ss, ids, coeff),
+                     adel_agg_q8_grouped_plain(qs, ss, ids, coeff)))):
+            pairs = list(pairs)
+            err = max(float((o - r).abs().max()) for o, r in pairs)
+            top = max(float(r.abs().max()) for _, r in pairs)
+            print(f"[fold slices] {name:19s} U={U} 38 leaves "
+                  f"max_abs_err={err:.3e} max_abs={top:.3e}", flush=True)
+            check(err <= tol * (1 + top),
+                  f"{name} at U={U} disagrees with its plain version: {err}")
+
+
+def run_rounds(torch, vgg: dict, rounds: int, *, exec=None, policy=None,
+               tracer=None, on_round=None):
+    """``rounds`` rounds of the VGG-11 cell through the round runtime (the
+    loop ``run_federated`` drives), evaluating after the first and the
+    last."""
+    from repro_torch.fl.runtime import (RoundRuntime, StaticCohortSource,
+                                        probe_s_max)
+    cfg = vgg["cfg"]
+    policy = vgg["policy"] if policy is None else policy
+    cx, cy, counts, x_te, y_te = vgg["data"]
+    s_max = max(min(probe_s_max(policy, cfg.R), int(cy.shape[1])), 2)
+    runtime = RoundRuntime(vgg["model"], policy, exec=exec, tracer=tracer,
+                           device="cuda")
+    source = StaticCohortSource(cx, cy, counts, device="cuda")
+    return runtime.run(source, rounds=rounds, T_max=cfg.T_max, eta=cfg.eta,
+                       s_max=s_max, test_x=x_te, test_y=y_te, seed=0,
+                       eval_every=max(rounds - 1, 1), on_round=on_round)
+
+
+def timed_rounds(torch, vgg: dict, rounds: int, **kw):
+    """(History, wall ms of each round: host clock between synchronized
+    ``on_round`` calls, the first from the run's start)."""
+    stamps = []
+
+    def on_round(t, params, hist):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = run_rounds(torch, vgg, rounds, on_round=on_round, **kw)
+    return hist, [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+
+
+def round_inputs(torch, vgg: dict, policy) -> dict:
+    """Round 0's inputs as the runtime draws them (the policy's plan, the
+    clients' minibatches) from seeded params."""
+    from repro_torch.fl.client import sample_client_batches
+    from repro_torch.fl.runtime import Draws, probe_s_max
+    cfg, model = vgg["cfg"], vgg["model"]
+    cx, cy, counts = (torch.as_tensor(a, device="cuda")
+                      for a in vgg["data"][:3])
+    draws = Draws(0)
+    plan = policy.round(draws, 0)
+    s_max = max(min(probe_s_max(policy, cfg.R), int(cy.shape[1])), 2)
+    xb, yb, wb = sample_client_batches(
+        draws.batch_indices(0, U_MAIN, s_max), cx, cy, counts,
+        plan.batch_sizes, s_max)
+    return {"params": model.init(torch.Generator().manual_seed(0), "cuda"),
+            "arrays": (xb, yb, wb, plan.mask.cuda(), plan.p.cuda()),
+            "eta": float(cfg.eta[0]), "plan": plan}
+
+
+def one_round(torch, vgg: dict, inputs: dict, spec):
+    """One round of the backend ``spec`` names on ``inputs``, the cohort
+    padded to the backend's width as the runtime pads it."""
+    import numpy as np
+
+    from repro_torch.fl.backends import make_backend
+    model, plan = vgg["model"], inputs["plan"]
+    backend = make_backend(exec=spec, model=model, device="cuda")
+    U_pad = backend.cohort_pad(U_MAIN)
+    arrays = [a if i == 4 else torch.cat(
+        [a, a.new_zeros((U_pad - U_MAIN,) + tuple(a.shape[1:]))])
+        for i, a in enumerate(inputs["arrays"])]
+    wmasks = None
+    if plan.width_ratios is not None:
+        r = np.concatenate([plan.width_ratios,
+                            np.ones(U_pad - U_MAIN, np.float32)])
+        wmasks = model.width_masks(inputs["params"], r)
+    out = backend.run_round(inputs["params"], *arrays, inputs["eta"],
+                            bias_correct=bool(plan.bias_correct),
+                            wmasks=wmasks)
+    torch.cuda.synchronize()
+    return out
+
+
+def agreement(torch, inputs: dict, out, dense_out) -> float:
+    """max |out - dense| / max |dense update| over every leaf."""
+    from repro_torch.tree import tree_leaves
+    leaves = list(zip(tree_leaves(out), tree_leaves(dense_out),
+                      tree_leaves(inputs["params"])))
+    upd = max(float((d - w).abs().max()) for _, d, w in leaves)
+    check(upd > 0, "the dense round did not move the params")
+    return max(float((a - d).abs().max()) for a, d, _ in leaves) / upd
+
+
+def fold_launches(prof) -> dict:
+    """Device launches of each fold kernel in a profile."""
+    from torch.autograd import DeviceType
+    out = {"adel_agg_grouped": 0, "adel_agg_q8_grouped": 0, "per_leaf": 0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "fold_grouped_q8_kernel" in e.key:
+            out["adel_agg_q8_grouped"] += e.count
+        elif "fold_grouped_kernel" in e.key:
+            out["adel_agg_grouped"] += e.count
+        elif re.search(r"\bfold_kernel", e.key):
+            out["per_leaf"] += e.count
+    return out
+
+
+def vgg_backends(torch, vgg: dict) -> dict:
+    """The chunked, temporal and hierarchical backends on the VGG-11 cell,
+    uncompressed and int8: wall a round over 3 rounds, the fold launches a
+    round counted by ``torch.profiler`` over 3 more (3 / 10 / 2 grouped
+    launches and no other fold launch), and one round from the same params,
+    batches and mask against the dense backend's. Returns each fold
+    kernel's launches a round on each backend, as the profiler counted
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.spec import ExecSpec
+    inputs = round_inputs(torch, vgg, vgg["policy"])
+    counters = fold_counters()
+    R = BACKEND_ROUNDS
+    per_path = {"adel_agg": {}, "adel_agg_q8": {}}
+    for comp in (None, "int8"):
+        dense_out = one_round(torch, vgg, inputs, ExecSpec(compression=comp))
+        kernel = "adel_agg_grouped" if comp is None else "adel_agg_q8_grouped"
+        for name, knobs, per_round in BACKEND_CASES:
+            spec = ExecSpec(backend=name, compression=comp, **knobs)
+            tag = f"[vgg11 backends] {name:12s} {comp or 'none':4s}"
+            hist, wall = timed_rounds(torch, vgg, R, exec=spec)
+            check(all(math.isfinite(v) for v in hist.train_loss),
+                  f"{tag} loss not finite")
+            for k in counters.values():
+                k.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run_rounds(torch, vgg, R, exec=spec)
+                torch.cuda.synchronize()
+            seen = fold_launches(prof)
+            fired = {k: c.launches for k, c in counters.items()}
+            ratio = agreement(torch, inputs,
+                              one_round(torch, vgg, inputs, spec), dense_out)
+            print(f"{tag} wall_ms_per_round={[round(w, 3) for w in wall]} "
+                  f"steady_ms={wall[1]:.3f} fold_launches_per_round "
+                  + " ".join(f"{k}={v / R:g}" for k, v in seen.items())
+                  + f" (wrappers: {fired}) one_round max|params-dense|/"
+                  f"max|dense update|={ratio:.3e}", flush=True)
+            want = {k: 0 for k in seen}
+            want[kernel] = per_round * R
+            check(seen == want, f"{tag} fold launches {seen}, want {want}")
+            check(fired == {k: (per_round * R if k == kernel else 0)
+                            for k in fired},
+                  f"{tag} wrapper launch counts {fired}")
+            check(ratio <= AGREE_UPDATE,
+                  f"{tag} one round disagrees with dense: {ratio:.3e} of "
+                  f"the update")
+            per_path["adel_agg" if comp is None else "adel_agg_q8"][name] = \
+                seen[kernel] / R
+    return per_path
+
+
+def vgg_heterofl(torch, vgg: dict) -> None:
+    """HeteroFL on the VGG-11 cell: 3 rounds on the dense and the chunked
+    backends (finite losses, no fold kernel: the width-overlap mean is
+    plain PyTorch, as in the reference), and one chunked round against the
+    dense round on the same inputs."""
+    from repro_torch.core.baselines import make_policy
+    from repro_torch.fl.spec import ExecSpec
+    policy = make_policy("heterofl", vgg["cfg"], device="cuda")
+    counters = fold_counters()
+    inputs = round_inputs(torch, vgg, policy)
+    part = inputs["plan"].mask[:, 0].tolist()
+    print(f"[vgg11 heterofl] width_ratios={policy.ratios.tolist()} "
+          f"round-1 participants={part}", flush=True)
+    dense_out = one_round(torch, vgg, inputs, ExecSpec())
+    for spec in (ExecSpec(), ExecSpec(backend="chunked", chunk_size=4)):
+        for k in counters.values():
+            k.launches = 0
+        hist, wall = timed_rounds(torch, vgg, BACKEND_ROUNDS, exec=spec,
+                                  policy=policy)
+        fired = {k: c.launches for k, c in counters.items()}
+        finite = all(math.isfinite(v) for v in hist.train_loss
+                     + hist.accuracy)
+        ratio = (0.0 if spec.backend == "dense" else agreement(
+            torch, inputs, one_round(torch, vgg, inputs, spec), dense_out))
+        print(f"[vgg11 heterofl] {spec.backend:8s} wall_ms_per_round="
+              f"{[round(w, 3) for w in wall]} loss={hist.train_loss} "
+              f"acc={hist.accuracy} finite={finite} fold_launches={fired}"
+              + ("" if spec.backend == "dense" else
+                 f" one_round max|params-dense|/max|dense update|="
+                 f"{ratio:.3e}"), flush=True)
+        check(finite, "HeteroFL loss or accuracy not finite")
+        check(not any(fired.values()),
+              f"a fold kernel ran in a HeteroFL round: {fired}")
+        check(ratio <= AGREE_UPDATE,
+              f"HeteroFL chunked round disagrees with dense: {ratio:.3e}")
+
+
+PHASE_NAMES = ("cohort", "plan", "stack", "local_train", "aggregate", "eval")
+
+
+def vgg_phases(torch, vgg: dict) -> None:
+    """Where a steady dense VGG-11 round's host time goes, uncompressed
+    and int8: the tracer's spans of rounds 2-4 by phase against the traced
+    and the untraced wall a round, and the ``aggregate`` phase split into
+    compress, fold and update by this script's own synchronized timers
+    around those calls of the dense backend (a third run)."""
+    from repro_torch import obs
+    from repro_torch.fl import backends as bk
+    from repro_torch.fl.spec import ExecSpec
+    R = ROUNDS_MAIN
+    steady = range(2, R)                       # 1-based rounds 2 .. R-1
+    for comp in (None, "int8"):
+        spec = ExecSpec(compression=comp)
+        tag = f"[vgg11 phases {comp or 'none'}]"
+        _, wall = timed_rounds(torch, vgg, R, exec=spec)
+        untraced = sum(wall[r - 1] for r in steady) / len(steady)
+        sink = obs.MemorySink()
+        tracer = obs.Tracer(sink)
+        _, hist = run_rounds(torch, vgg, R, exec=spec, tracer=tracer)
+        table = obs.phase_table(sink.records)
+        rows = obs.ledger_rows(sink.records)
+        check(len(rows) == R and hist.telemetry["phases"],
+              f"{tag} the tracer recorded {len(rows)} rounds")
+        ms = {ph: 1e3 * sum(table[r].get(ph, 0.0) for r in steady)
+              / len(steady) for ph in PHASE_NAMES}
+        eval_ms = 1e3 * sum(table[r]["eval"] for r in (1, R)) / 2
+        traced = 1e3 * sum(rows[r - 1]["wall_round_s"]
+                           for r in steady) / len(steady)
+        total = sum(ms.values())
+        print(f"{tag} host ms a round by phase (rounds 2-4, traced, "
+              f"synchronized at span ends): "
+              + " ".join(f"{k}={v:.3f}" for k, v in ms.items())
+              + f" | sum={total:.3f} traced_wall={traced:.3f} "
+              f"untraced_wall={untraced:.3f} | eval ms in the rounds that "
+              f"evaluate (1, {R})={eval_ms:.3f}", flush=True)
+        check(all(ms[ph] > 0 for ph in PHASE_NAMES[:-1]),
+              f"{tag} a phase recorded no time: {ms}")
+        check(total <= traced * 1.001,
+              f"{tag} phases sum past the round's wall: {total} > {traced}")
+        # the aggregate phase split by the script's own timers
+        split = {"compress": [], "fold": [], "update": []}
+        saved = {n: getattr(bk, n) for n in ("compress_deltas",
+                                             "aggregate_compressed",
+                                             "aggregate_grads",
+                                             "apply_update")}
+
+        def timer(part, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                split[part].append(1e3 * (time.perf_counter() - t0))
+                return out
+            return run
+
+        bk.compress_deltas = timer("compress", saved["compress_deltas"])
+        bk.aggregate_compressed = timer("fold", saved["aggregate_compressed"])
+        bk.aggregate_grads = timer("fold", saved["aggregate_grads"])
+        bk.apply_update = timer("update", saved["apply_update"])
+        try:
+            run_rounds(torch, vgg, R, exec=spec)
+        finally:
+            for n, fn in saved.items():
+                setattr(bk, n, fn)
+        parts = {k: (sum(v[r - 1] for r in steady) / len(steady) if v else
+                     0.0) for k, v in split.items()}
+        print(f"{tag} aggregate split (rounds 2-4, script timers): "
+              + " ".join(f"{k}={v:.3f}" for k, v in parts.items())
+              + f" | sum={sum(parts.values()):.3f} aggregate_span="
+              f"{ms['aggregate']:.3f}", flush=True)
+        check(len(split["fold"]) == R and len(split["update"]) == R,
+              f"{tag} the timers saw {split}")
 
 
 def mlp_quickstart(torch) -> float:
@@ -971,7 +1323,12 @@ def main() -> int:
     rows = kernel_cases(torch, leaf_F)
     per_round = fold_round(torch, leaf_F)
     lm_rows = lm_kernel_cases(torch)
-    launches = vgg_runs(torch)
+    vgg = vgg_setup(torch)
+    launches = vgg_runs(torch, vgg)
+    fold_slices(torch, leaf_F)
+    backend_launches = vgg_backends(torch, vgg)
+    vgg_heterofl(torch, vgg)
+    vgg_phases(torch, vgg)
     mlp_quickstart(torch)
     prefill = hymba_prefill(torch)
     launches.update(prefill["launches"])
@@ -995,6 +1352,7 @@ def main() -> int:
             "bound_ms": rnd["bound_ms"], "bound_by": "bytes",
             "library_ms": rnd["library_ms"], "call_ms": rnd["call_ms"],
             "entry": entries[name],
+            "launches_per_round_by_backend": backend_launches[name],
             "shapes": "one round's fold: 38 VGG-11 leaves at U=10, "
                       + ("f32" if name == "adel_agg" else "int8")
                       + ", one grouped launch",

@@ -24,9 +24,12 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.ops import adel_aggregate, fold_tree
+from repro_torch.tree import tree_map
 
 __all__ = ["layer_coefficients", "weight_by_layer", "aggregate_with_coeffs",
-           "aggregate_grads", "aggregate_grads_chunk", "masked_mean_grads"]
+           "aggregate_grads", "aggregate_grads_chunk",
+           "hetero_overlap_partials", "hetero_overlap_mean",
+           "masked_mean_grads"]
 
 PyTree = Any
 
@@ -80,6 +83,39 @@ def aggregate_grads_chunk(chunk_grads: PyTree, layer_ids: PyTree,
     c = layer_coefficients(chunk_mask, p, bias_correct=bias_correct,
                            counts=counts)
     return aggregate_with_coeffs(chunk_grads, layer_ids, c)
+
+
+def hetero_overlap_partials(deltas: PyTree, wmasks: PyTree,
+                            part: torch.Tensor) -> tuple[PyTree, PyTree]:
+    """Per-shard partials of the HeteroFL width-overlap mean.
+
+    HeteroFL averages each parameter ENTRY over the participating clients
+    whose width-reduced submodel contains it:
+
+        agg = sum_u part_u wm_u d_u / max(sum_u part_u wm_u, 1)
+
+    Both sums are linear over the client axis, so a backend computes
+    (num, den) partials over its slice of clients (a chunk, a region, one
+    client) and adds them up before the final divide in
+    :func:`hetero_overlap_mean`. Plain PyTorch, as in the reference: this
+    is an entry-wise mean, not an Eq. 5 coefficient fold, and no kernel of
+    the reference computes it.
+
+    deltas/wmasks leaves: (U_local,) + param.shape; part: (U_local,)
+    participation indicator (all-or-nothing rows of the layer mask).
+    """
+    def w(wm):
+        return part.to(wm).reshape((-1,) + (1,) * (wm.dim() - 1)) * wm
+
+    num = tree_map(lambda d, wm: (w(wm) * d).sum(0), deltas, wmasks)
+    den = tree_map(lambda wm: w(wm).sum(0), wmasks)
+    return num, den
+
+
+def hetero_overlap_mean(num: PyTree, den: PyTree) -> PyTree:
+    """Finish the width-overlap mean from combined partials; entries no
+    participating client covers keep delta 0."""
+    return tree_map(lambda n, d: n / torch.clamp(d, min=1.0), num, den)
 
 
 def masked_mean_grads(grads: PyTree, layer_ids: PyTree,

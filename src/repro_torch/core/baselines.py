@@ -3,9 +3,10 @@ PyTorch (port of ``repro.core.baselines``).
 
 A policy decides, per round t: the deadline T_t (the simulated round
 wall-clock), each client's batch size S_t^u, the per-(client, layer)
-contribution mask, and the aggregation rule (bias-corrected layer-wise or
-plain mean). Policies plan against the static config they were built with
-(the reference's per-round cohort ``view`` serves fleets, not ported yet).
+contribution mask, and the aggregation rule (bias-corrected layer-wise,
+plain mean, or HeteroFL's width-overlap mean). Policies plan against the
+static config they were built with (the reference's per-round cohort
+``view`` serves fleets, not ported yet).
 
 All randomness flows through the ``draws`` object the runtime passes to
 :meth:`Policy.round` (:class:`repro_torch.fl.runtime.Draws`: ``poisson(t,
@@ -16,14 +17,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
+import numpy as np
 import torch
 
 from . import straggler
 from .types import AnalysisConfig, Schedule
 
 __all__ = ["RoundPlan", "Policy", "AdelPolicy", "SalfPolicy", "DropPolicy",
-           "WaitPolicy", "make_policy"]
+           "WaitPolicy", "HeteroFLPolicy", "make_policy"]
 
 
 @dataclasses.dataclass
@@ -33,6 +36,7 @@ class RoundPlan:
     batch_sizes: torch.Tensor  # (U,)
     elapsed: float             # simulated wall-clock consumed by this round
     bias_correct: bool         # Eq. (5) 1/(1-p) correction?
+    width_ratios: Optional[np.ndarray] = None   # HeteroFL only
 
 
 class Policy:
@@ -137,6 +141,53 @@ class WaitPolicy(Policy):
                          elapsed=elapsed, bias_correct=False)
 
 
+class HeteroFLPolicy(Policy):
+    """HeteroFL [30]: clients train width-reduced submodels matched to their
+    capability; aggregation averages each parameter entry over the clients
+    whose submodel contains it. Compute per layer scales ~ r^2 (both weight
+    matrices shrink), so slow clients nearly always finish their small
+    model. ``RoundPlan.width_ratios`` tells the runtime which width masks
+    to build; the width-overlap mean runs on every execution backend
+    (:mod:`repro_torch.fl.backends`)."""
+
+    name = "heterofl"
+    LEVELS = (1.0, 0.5, 0.25, 0.125)
+
+    def __init__(self, cfg: AnalysisConfig, m: float):
+        super().__init__(cfg)
+        self.m = float(m)
+        self.T_t = cfg.T_max / cfg.R
+        self.ratios = self._capability_ratios(cfg.P)
+
+    @classmethod
+    def _capability_ratios(cls, P: np.ndarray) -> np.ndarray:
+        """Capability-bucketed width ratios: fastest quartile -> 1.0, etc."""
+        P = np.asarray(P)
+        order = np.argsort(np.argsort(-P))          # rank 0 = fastest
+        quart = (order * len(cls.LEVELS)) // len(P)
+        return np.asarray([cls.LEVELS[q] for q in quart], np.float32)
+
+    def round(self, draws, t):
+        cfg = self.cfg
+        P = torch.as_tensor(cfg.P, dtype=torch.float32)
+        B = torch.as_tensor(cfg.B_eff, dtype=torch.float32)
+        S_fix = straggler.fixed_batch(self.T_t, self.m, cfg)
+        r = torch.as_tensor(self.ratios)
+        # per-layer time Exp(S r^2 / P) -> completed layers
+        # ~ Poisson(P (T - B) / (S r^2))
+        lam = P / (S_fix * r ** 2) * torch.clamp(self.T_t - B, min=0.0)
+        z = draws.poisson(t, lam)
+        full = (z >= cfg.L).to(torch.float32)
+        mask = full[:, None].expand(cfg.U, cfg.L).contiguous()
+        S = torch.full((cfg.U,), S_fix)
+        return RoundPlan(mask=mask, p=torch.zeros(cfg.L), batch_sizes=S,
+                         elapsed=self.T_t, bias_correct=False,
+                         width_ratios=self.ratios)
+
+    def describe(self):
+        return {"name": self.name, "m": self.m, "ratios": self.ratios.tolist()}
+
+
 def make_policy(method: str, cfg: AnalysisConfig, *,
                 schedule: Schedule | None = None, m: float | None = None,
                 device=None) -> Policy:
@@ -146,10 +197,6 @@ def make_policy(method: str, cfg: AnalysisConfig, *,
         if schedule is None:
             schedule = solve(cfg, "trust-constr", device=device)
         return AdelPolicy(cfg, schedule)
-    if method == "heterofl":
-        raise NotImplementedError(
-            "HeteroFL is not ported yet (ROADMAP.md, item 1.3: HeteroFL "
-            "policy and width-overlap aggregation)")
     if m is None:
         m = constant_schedule(cfg, device=device).m
     if method == "salf":
@@ -158,4 +205,6 @@ def make_policy(method: str, cfg: AnalysisConfig, *,
         return DropPolicy(cfg, m)
     if method == "wait":
         return WaitPolicy(cfg, m)
+    if method == "heterofl":
+        return HeteroFLPolicy(cfg, m)
     raise ValueError(f"unknown method {method!r}")

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sync"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -16,3 +16,11 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device``: ``torch.cuda.synchronize``
+    on a CUDA device, nothing elsewhere (CPU ops run in order)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,1 +1,2 @@
-"""Federated round loop of the port: clients, backends, runtime, server."""
+"""Federated round loop of the port: clients, the execution spec and
+backends, runtime, server."""

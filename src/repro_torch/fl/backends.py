@@ -1,88 +1,472 @@
 """Execution backends for the round runtime, in PyTorch (port of
 ``repro.fl.backends``).
 
-:class:`repro_torch.fl.runtime.RoundRuntime` plans a round and hands the
-round inputs to an :class:`ExecutionBackend`, which computes and
-aggregates the cohort's client updates. This slice ports
-:class:`DenseBackend`: the whole cohort in one ``torch.func.vmap`` and the
-Eq. 5 fold of every leaf through the hand-written grouped kernels —
-``core.aggregation.aggregate_grads`` (``adel_agg_grouped``) uncompressed,
-``core.compression.aggregate_compressed`` (``adel_agg_q8_grouped`` for
-int8, a plain scatter-add per leaf for topk8) compressed. The reference's other backends
-(chunked, shard_map, temporal, buffered, hierarchical) wait for later
-slices (ROADMAP.md, items 1.8-1.9).
+:class:`repro_torch.fl.runtime.RoundRuntime` plans a round (policy,
+padding, clock, eval) and hands the padded round inputs to an
+:class:`ExecutionBackend`, which computes and aggregates the cohort's
+client updates:
+
+* :class:`DenseBackend`        — the whole cohort in one
+  ``torch.func.vmap`` and one fold.
+* :class:`ChunkedBackend`      — the cohort axis ``chunk_size`` clients at
+  a time; each chunk's partial aggregate is taken against the GLOBAL
+  per-layer contributor counts (:func:`repro_torch.core.aggregation.
+  aggregate_grads_chunk`), so the partials sum to the dense fold without a
+  full ``(cohort, ...)`` delta pytree.
+* :class:`TemporalBackend`     — one client at a time: each client's delta,
+  cast to f32, is folded with its Eq. 5 coefficient row into one f32
+  accumulator, so peak memory is one delta pytree whatever the cohort size.
+* :class:`HierarchicalBackend` — two-tier edge aggregation: the cohort
+  splits into edge regions (the round context's region ids, or a
+  contiguous split), each region computes one partial against the global
+  counts, and one global update applies their sum. A single region
+  delegates to the dense backend, bit for bit.
+
+All of them produce the same updates up to float summation order. Every
+fold goes through the hand-written grouped kernels: one
+``adel_agg_grouped`` launch per fold uncompressed and one
+``adel_agg_q8_grouped`` launch per fold under int8 (a plain scatter-add a
+leaf for topk8), so a round launches one fold (dense), one a chunk
+(chunked), one a client (temporal) or one a region (hierarchical). Under
+compression the reduction consumes the wire payload: each slice of the
+cohort is compressed (:func:`repro_torch.core.compression.
+compress_deltas`) and folded into an f32 accumulator. HeteroFL rounds
+(width masks) take the width-overlap mean
+(:func:`repro_torch.core.aggregation.hetero_overlap_partials`), plain
+PyTorch as in the reference, through the same chunk/region/client loops,
+and reject compression.
+
+The fold's dtype contract: a fold returns the deltas' dtype (as the
+kernel and the reference's Pallas path do), and every server update is
+applied in f32 and cast back to the params' dtype (:func:`_sub32`), so
+bf16 params stay bf16. The temporal backend accumulates in f32, as the
+reference's does.
+
+Telemetry: every backend carries the runtime's tracer (``set_tracer``,
+default :data:`repro_torch.obs.NULL_TRACER`). Each emits ``local_train``
+spans around the client updates and ``aggregate`` spans around the folds
+and the update (per chunk, client or region, plus one around the final
+update), and the ``aggregate_bytes_logical`` / ``aggregate_bytes_wire``
+counters (analytic: :func:`repro_torch.core.compression.payload_bytes`).
+An active tracer synchronizes a CUDA device at the end of each span, so
+spans measure the card's work; numerics are untouched either way.
+
+Backends are selected through :class:`repro_torch.fl.spec.ExecSpec`
+(``make_backend(exec=spec, model=model)``) or by legacy name; both resolve
+through :meth:`ExecSpec.resolve`. The reference's ``shard_map`` and
+``buffered`` backends wait for later slices (ROADMAP.md, items 1.8-1.9).
 """
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
-from repro_torch.core.aggregation import aggregate_grads
+from repro_torch.core.aggregation import (aggregate_grads,
+                                          aggregate_grads_chunk,
+                                          hetero_overlap_mean,
+                                          hetero_overlap_partials)
 from repro_torch.core.compression import (aggregate_compressed,
-                                          compress_deltas, make_compression)
-from repro_torch.device import resolve_device
+                                          compress_deltas, make_compression,
+                                          payload_bytes)
+from repro_torch.device import resolve_device, sync
 from repro_torch.fl.client import batched_client_deltas
+from repro_torch.fl.spec import AGG_IMPLS, BACKENDS, ExecSpec
+from repro_torch.obs import NULL_TRACER
 from repro_torch.tree import tree_map
 
-__all__ = ["ExecutionBackend", "DenseBackend"]
+__all__ = ["BACKENDS", "AGG_IMPLS", "ExecSpec", "ExecutionBackend",
+           "DenseBackend", "ChunkedBackend", "TemporalBackend",
+           "HierarchicalBackend", "make_backend"]
 
 PyTree = Any
 
 
 def _sub32(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """dtype-preserving server update for float32 aggregates."""
+    """dtype-preserving server update, computed in f32."""
     return (w.to(torch.float32) - d.to(torch.float32)).to(w.dtype)
 
 
+def apply_update(params: PyTree, agg: PyTree) -> PyTree:
+    """The server update ``params - agg``, leaf by leaf in f32."""
+    return tree_map(_sub32, params, agg)
+
+
 class ExecutionBackend:
-    """Executes one federated round over the cohort.
+    """Executes one federated round over a padded cohort.
 
     ``run_round`` receives per-client batches ``xb/yb/wb`` with leading
-    axis U, the (U, L) contribution mask, the (L,) zero-contributor
-    probabilities ``p`` and the round's learning rate, and returns the
-    updated global params. Params are not updated in place.
+    axis ``U_pad = cohort_pad(cohort_size)``, the (U_pad, L) contribution
+    mask (padded rows all-zero, so they contribute nothing), the (L,)
+    zero-contributor probabilities ``p``, the round's learning rate, and —
+    for HeteroFL rounds — a width-mask pytree with leading axis U_pad. It
+    returns the updated global params; params are never updated in place.
     """
 
     name = "base"
+    #: backends that read the runtime's per-round
+    #: :class:`repro_torch.fl.runtime.RoundContext` (``ctx=``)
+    needs_ctx = False
 
     def __init__(self, model, *, local_iters: int = 1, l2: float = 0.0,
-                 compression=None, device=None):
+                 donate: bool = True, compression=None,
+                 agg_impl: str = "jnp", device=None):
         self.model = model
         self.local_iters = int(local_iters)
         self.l2 = float(l2)
+        self.donate = bool(donate)
         self.compression = make_compression(compression)
+        self.agg_impl = str(agg_impl)
+        assert self.agg_impl in AGG_IMPLS, \
+            f"unknown agg_impl {agg_impl!r}; known: {AGG_IMPLS}"
         self.device = resolve_device(device)
+        self.tracer = NULL_TRACER
+        self._bytes_cache: dict[int, tuple[int, int]] = {}
+
+    def set_tracer(self, tracer) -> None:
+        """Attach the runtime's tracer (:class:`repro_torch.obs.Tracer`)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+
+    def _round_bytes(self, params_like: PyTree, U: int) -> tuple[int, int]:
+        """Analytic (logical, wire) payload bytes of a U-client reduction
+        under this backend's compression; ``params_like`` supplies leaf
+        shapes only."""
+        key = int(U)
+        if key not in self._bytes_cache:
+            ids = self.model.layer_ids(params_like)
+            self._bytes_cache[key] = payload_bytes(params_like, ids, key,
+                                                   self.compression)
+        return self._bytes_cache[key]
+
+    def _count_bytes(self, params_like: PyTree, U: int) -> None:
+        logical, wire = self._round_bytes(params_like, U)
+        self.tracer.count("aggregate_bytes_logical", logical,
+                          backend=self.name)
+        self.tracer.count("aggregate_bytes_wire", wire, backend=self.name)
+
+    def _check_rule(self, wmasks) -> None:
+        """HeteroFL's width-overlap mean is an entry-wise mean, not an Eq. 5
+        coefficient fold: the quantized wire format has no sound
+        dequant-weight for it."""
+        if wmasks is not None and self.compression.mode != "none":
+            raise ValueError(
+                f"compression={self.compression.mode!r} is incompatible "
+                f"with HeteroFL width-mask aggregation")
+
+    def _fence(self) -> None:
+        """Under an active tracer, wait for the device so the enclosing
+        span measures its work."""
+        if self.tracer.active:
+            sync(self.device)
+
+    def cohort_pad(self, U: int) -> int:
+        """Smallest padded cohort width >= U this backend can execute."""
+        return int(U)
+
+    def reset_state(self) -> None:
+        """Clear cross-round server-side state; the runtime calls this at
+        the start of every run. Stateless backends are a no-op."""
 
     def run_round(self, params: PyTree, xb, yb, wb, mask, p, eta, *,
-                  bias_correct: bool) -> PyTree:
+                  bias_correct: bool, wmasks: PyTree | None = None,
+                  ctx=None) -> PyTree:
         raise NotImplementedError
+
+    def describe(self) -> dict:
+        return {"backend": self.name, "donate": self.donate,
+                "compression": self.compression.mode,
+                "agg_impl": self.agg_impl}
+
+    # shared sub-computations -------------------------------------------
+    def _inputs(self, xb, yb, wb, mask, p):
+        dev = self.device
+        return (xb.to(dev), yb.to(dev), wb.to(dev),
+                mask.to(device=dev, dtype=torch.float32),
+                p.to(device=dev, dtype=torch.float32))
 
     def _deltas(self, params, xb, yb, wb, eta):
         return batched_client_deltas(self.model.loss, params, xb, yb, wb,
                                      eta, local_iters=self.local_iters,
                                      l2=self.l2)
 
-
-class DenseBackend(ExecutionBackend):
-    """Whole cohort in one vmap + one grouped Eq. 5 fold a round."""
-
-    name = "dense"
-
-    def run_round(self, params, xb, yb, wb, mask, p, eta, *, bias_correct):
-        dev = self.device
-        xb, yb, wb = xb.to(dev), yb.to(dev), wb.to(dev)
-        mask = mask.to(device=dev, dtype=torch.float32)
-        p = p.to(device=dev, dtype=torch.float32)
-        deltas = self._deltas(params, xb, yb, wb, eta)
+    def _partial(self, params, deltas, mask, p, counts, *, bias_correct,
+                 wmasks):
+        """The aggregate of one slice of the cohort: its (num, den)
+        width-overlap partials for HeteroFL, else its Eq. 5 fold against
+        ``counts`` (the global per-layer contributor counts; None when the
+        slice is the whole cohort) — from the wire payload under
+        compression (f32), else from the deltas (their dtype)."""
+        if wmasks is not None:
+            return hetero_overlap_partials(deltas, wmasks, mask[:, 0])
         ids = self.model.layer_ids(params)
         comp = self.compression
         if comp.mode != "none":
             # the reduction consumes the wire payload: the float32 delta
             # tree never feeds the aggregation
             payload = compress_deltas(deltas, ids, comp)
-            agg = aggregate_compressed(payload, params, ids, mask, p,
-                                       cfg=comp, bias_correct=bias_correct)
-            return tree_map(_sub32, params, agg)
-        agg = aggregate_grads(deltas, ids, mask, p, bias_correct=bias_correct)
-        return tree_map(lambda w, d: w - d, params, agg)
+            return aggregate_compressed(payload, params, ids, mask, p,
+                                        cfg=comp, counts=counts,
+                                        bias_correct=bias_correct)
+        if counts is None:
+            return aggregate_grads(deltas, ids, mask, p,
+                                   bias_correct=bias_correct)
+        return aggregate_grads_chunk(deltas, ids, mask, p, counts,
+                                     bias_correct=bias_correct)
+
+    @staticmethod
+    def _finish(params, agg, hetero: bool):
+        if hetero:
+            agg = hetero_overlap_mean(*agg)
+        return apply_update(params, agg)
+
+    def _run_slices(self, params, xb, yb, wb, mask, p, eta, slices, *,
+                    bias_correct, wmasks, label, dtype=None):
+        """One round as a loop over slices of the cohort: ``slices`` holds
+        ``(index, clients)`` pairs (a slice or an index tensor into the
+        cohort axis, and the clients it counts in the byte counters). Each
+        slice's deltas (cast to ``dtype`` if given) give one partial
+        against the global counts; the partials are summed and applied in
+        one update."""
+        tracer = self.tracer
+        hetero = wmasks is not None
+        counts = mask.sum(0)                  # (L,) GLOBAL contributors
+        acc = None
+        for j, (sl, n) in enumerate(slices):
+            with tracer.span("local_train", backend=self.name, **{label: j}):
+                deltas = self._deltas(params, xb[sl], yb[sl], wb[sl], eta)
+                if dtype is not None:
+                    deltas = tree_map(lambda d: d.to(dtype), deltas)
+                self._fence()
+            if tracer.active:
+                self._count_bytes(params, n)
+            with tracer.span("aggregate", backend=self.name, **{label: j}):
+                wm = (None if not hetero
+                      else tree_map(lambda m: m[sl], wmasks))
+                part = self._partial(params, deltas, mask[sl], p, counts,
+                                     bias_correct=bias_correct, wmasks=wm)
+                acc = part if acc is None else tree_map(torch.add, acc, part)
+                self._fence()
+        with tracer.span("aggregate", backend=self.name,
+                         **{label + "s": len(slices)}):
+            out = self._finish(params, acc, hetero)
+            self._fence()
+        return out
+
+
+class DenseBackend(ExecutionBackend):
+    """Whole cohort in one vmap + one grouped fold a round."""
+
+    name = "dense"
+
+    def run_round(self, params, xb, yb, wb, mask, p, eta, *,
+                  bias_correct, wmasks=None, ctx=None):
+        self._check_rule(wmasks)
+        xb, yb, wb, mask, p = self._inputs(xb, yb, wb, mask, p)
+        tracer = self.tracer
+        with tracer.span("local_train", backend=self.name):
+            deltas = self._deltas(params, xb, yb, wb, eta)
+            self._fence()
+        if tracer.active:
+            self._count_bytes(params, mask.shape[0])
+        with tracer.span("aggregate", backend=self.name):
+            agg = self._partial(params, deltas, mask, p, None,
+                                bias_correct=bias_correct, wmasks=wmasks)
+            out = self._finish(params, agg, wmasks is not None)
+            self._fence()
+        return out
+
+
+class ChunkedBackend(ExecutionBackend):
+    """Sequential chunk sums over the client axis.
+
+    The cohort is padded to a ``chunk_size`` multiple; each chunk's partial
+    aggregate uses the GLOBAL per-layer contributor counts, so summing the
+    partials over chunks equals the dense fold on the concatenated client
+    axis (one grouped fold launch a chunk). Under compression each chunk's
+    int8 payload is folded into an f32 accumulator. A single-chunk cohort
+    falls through to the dense backend.
+    """
+
+    name = "chunked"
+
+    def __init__(self, model, *, chunk_size: int = 16, **kw):
+        super().__init__(model, **kw)
+        self.chunk_size = max(int(chunk_size), 1)
+        self._dense = DenseBackend(model, **kw)
+
+    def cohort_pad(self, U: int) -> int:
+        c = min(self.chunk_size, int(U))   # never vmap dead padding
+        return -(-int(U) // c) * c
+
+    def set_tracer(self, tracer) -> None:
+        super().set_tracer(tracer)
+        self._dense.set_tracer(tracer)     # single-chunk fall-through
+
+    def run_round(self, params, xb, yb, wb, mask, p, eta, *,
+                  bias_correct, wmasks=None, ctx=None):
+        self._check_rule(wmasks)
+        U = int(mask.shape[0])
+        c = min(self.chunk_size, U)
+        if U <= c:
+            return self._dense.run_round(params, xb, yb, wb, mask, p, eta,
+                                         bias_correct=bias_correct,
+                                         wmasks=wmasks)
+        xb, yb, wb, mask, p = self._inputs(xb, yb, wb, mask, p)
+        slices = [(slice(c0, c0 + c), c) for c0 in range(0, U, c)]
+        return self._run_slices(params, xb, yb, wb, mask, p, eta, slices,
+                                bias_correct=bias_correct, wmasks=wmasks,
+                                label="chunk")
+
+    def describe(self):
+        return {**super().describe(), "chunk_size": self.chunk_size}
+
+
+class TemporalBackend(ExecutionBackend):
+    """Clients as grad-accumulation microbatches, one at a time.
+
+    Each client's local update runs alone; its delta, cast to f32, is
+    folded with its Eq. 5 coefficient row (the global counts') in one
+    grouped launch — or, under int8, compressed and folded through
+    :func:`repro_torch.core.compression.aggregate_compressed` — into a
+    single f32 accumulator, so peak memory is one delta pytree regardless
+    of cohort size (the layout the reference keeps for its largest
+    architectures). HeteroFL rounds accumulate the width-overlap (num, den)
+    partials instead.
+    """
+
+    name = "temporal"
+
+    def run_round(self, params, xb, yb, wb, mask, p, eta, *,
+                  bias_correct, wmasks=None, ctx=None):
+        self._check_rule(wmasks)
+        xb, yb, wb, mask, p = self._inputs(xb, yb, wb, mask, p)
+        slices = [(slice(u, u + 1), 1) for u in range(int(mask.shape[0]))]
+        return self._run_slices(params, xb, yb, wb, mask, p, eta, slices,
+                                bias_correct=bias_correct, wmasks=wmasks,
+                                label="client", dtype=torch.float32)
+
+
+class HierarchicalBackend(ChunkedBackend):
+    """Two-tier edge aggregation: per-region partials + one global update.
+
+    1. The padded cohort is partitioned into edge regions. Region ids come
+       from the round context (``ctx.regions``); without them the cohort
+       splits into ``regions`` contiguous slices, so the backend works
+       under plain ``run_federated`` too.
+    2. Each region runs its clients' local updates and computes ONE partial
+       aggregate against the GLOBAL per-layer contributor counts (one
+       grouped fold launch a region; under int8, from the region's wire
+       payload into an f32 accumulator), so the partials sum to the flat
+       Eq. 5 fold on the whole cohort.
+    3. The server applies the summed partials in one update.
+
+    The reference gathers each region at a width padded to a multiple of 8
+    so its jit retraces once per width; the port has no trace to keep, so a
+    region runs at its own width (``region_pad`` = ``region_max``).
+
+    A single-region round (``regions=1``, or every client in one region)
+    delegates to the dense backend, bit-identical to ``backend="dense"``.
+    ``last_regions`` exposes the round's region census to the runtime's
+    ledger (``regions`` / ``region_max`` / ``region_pad`` columns).
+    """
+
+    name = "hierarchical"
+    needs_ctx = True
+
+    def __init__(self, model, *, regions: int = 4, chunk_size: int = 16,
+                 **kw):
+        super().__init__(model, chunk_size=chunk_size, **kw)
+        self.regions = max(int(regions), 1)
+        self.last_regions: dict = {}
+
+    def cohort_pad(self, U: int) -> int:
+        return int(U)
+
+    def reset_state(self) -> None:
+        self.last_regions = {}
+
+    def describe(self):
+        return {**super().describe(), "regions": self.regions}
+
+    def _region_groups(self, ctx, U: int) -> list[np.ndarray]:
+        """Per-region member indices into the cohort axis. Pad rows keep
+        the region of the fallback split (or id 0); their mask rows are
+        zero, so they contribute nothing wherever they land."""
+        ra = getattr(ctx, "regions", None) if ctx is not None else None
+        if ra is not None:
+            ra = np.asarray(ra, np.int64)
+            rid = np.zeros(U, np.int64)
+            rid[:min(len(ra), U)] = ra[:U]
+        else:
+            rid = (np.arange(U) * self.regions) // max(U, 1)
+        return [np.flatnonzero(rid == g) for g in np.unique(rid)]
+
+    def run_round(self, params, xb, yb, wb, mask, p, eta, *,
+                  bias_correct, wmasks=None, ctx=None):
+        self._check_rule(wmasks)
+        U = int(mask.shape[0])
+        groups = self._region_groups(ctx, U)
+        if len(groups) <= 1:
+            self.last_regions = {"regions": 1, "region_max": U,
+                                 "region_pad": U}
+            return self._dense.run_round(params, xb, yb, wb, mask, p, eta,
+                                         bias_correct=bias_correct,
+                                         wmasks=wmasks)
+        rmax = max(len(g) for g in groups)
+        self.last_regions = {"regions": len(groups), "region_max": rmax,
+                             "region_pad": rmax}
+        xb, yb, wb, mask, p = self._inputs(xb, yb, wb, mask, p)
+        slices = [(torch.as_tensor(g, device=self.device), len(g))
+                  for g in groups]
+        return self._run_slices(params, xb, yb, wb, mask, p, eta, slices,
+                                bias_correct=bias_correct, wmasks=wmasks,
+                                label="region")
+
+
+def make_backend(backend=None, model=None, *, exec: ExecSpec | None = None,
+                 chunk_size: int | None = None, mesh=None,
+                 local_iters: int | None = None, l2: float | None = None,
+                 donate: bool | None = None, compression=None,
+                 agg_impl: str | None = None, lam: float | None = None,
+                 max_age: int | None = None, buffer_cap: int | None = None,
+                 regions: int | None = None, device=None) -> ExecutionBackend:
+    """Build an :class:`ExecutionBackend` on ``device`` (the card unless the
+    caller passes another) from an :class:`repro_torch.fl.spec.ExecSpec`
+    (``exec=``, or an ExecSpec as the first positional argument) or from
+    the legacy kwargs — both funnel through :meth:`ExecSpec.resolve`, so
+    the two call forms are equivalent. An :class:`ExecutionBackend`
+    instance passes through unchanged.
+
+    Legacy kwargs default to None (= the spec's value): ``backend`` names
+    one of :data:`BACKENDS`; ``compression`` is a
+    :mod:`repro_torch.core.compression` spec (None | mode string |
+    ``(mode, top_k)`` | :class:`CompressionConfig`). Knobs the selected
+    backend would ignore warn (or raise, under ``REPRO_EXEC_STRICT=1``).
+    """
+    if isinstance(backend, ExecutionBackend):
+        return backend
+    if isinstance(backend, ExecSpec):
+        exec, backend = (backend if exec is None else exec), None
+    legacy = dict(backend=backend, chunk_size=chunk_size, mesh=mesh,
+                  local_iters=local_iters, l2=l2, donate=donate,
+                  compression=compression, agg_impl=agg_impl, lam=lam,
+                  max_age=max_age, buffer_cap=buffer_cap, regions=regions)
+    has_legacy = any(v is not None for v in legacy.values())
+    # a complete ExecSpec was validated by the resolve() that built it;
+    # re-validate only when legacy kwargs modify it
+    spec = ExecSpec.resolve(exec, validate=has_legacy or exec is None,
+                            **legacy)
+    if isinstance(spec.backend, ExecutionBackend):
+        return spec.backend
+    kw = dict(spec.backend_kwargs(), device=device)
+    if spec.backend == "dense":
+        return DenseBackend(model, **kw)
+    if spec.backend == "chunked":
+        return ChunkedBackend(model, chunk_size=spec.chunk_size, **kw)
+    if spec.backend == "temporal":
+        return TemporalBackend(model, **kw)
+    if spec.backend == "hierarchical":
+        return HierarchicalBackend(model, regions=spec.regions,
+                                   chunk_size=spec.chunk_size, **kw)
+    raise ValueError(f"unknown backend {spec.backend!r}; known: {BACKENDS}")

@@ -1,17 +1,36 @@
 """The federated round loop, in PyTorch (port of the serial path of
 ``repro.fl.runtime``).
 
-:class:`RoundRuntime` owns per-round policy planning, minibatch sampling, the
-simulated wall-clock under Requirements R1 (at most R rounds) and R2 (total
-simulated time <= T_max), eval cadence and the :class:`History` record; an
-:class:`repro_torch.fl.backends.ExecutionBackend` executes each round.
+:class:`RoundRuntime` owns per-round policy planning, minibatch sampling,
+cohort padding to the backend's width (padded rows carry an all-zero mask,
+batch weights and data, so they contribute nothing), HeteroFL width-mask
+derivation (cached per distinct width-ratio vector), the simulated
+wall-clock under Requirements R1 (at most R rounds) and R2 (total
+simulated time <= T_max), eval cadence and the :class:`History` record.
+HOW a round executes is an :class:`repro_torch.fl.backends.
+ExecutionBackend` (``dense`` / ``chunked`` / ``temporal`` /
+``hierarchical``), selected through one :class:`repro_torch.fl.spec.
+ExecSpec`.
 
 Every random draw of a run comes from one :class:`Draws` object: the
 initial params, each round's Poisson depths (and the Wait baseline's Gamma
-clocks) and each round's minibatch indices. By default it is a
+clocks) and each round's minibatch indices, drawn at the unpadded cohort
+width so every backend sees the same minibatches. By default it is a
 ``torch.Generator`` seeded from ``seed``. The reference's JAX draws cannot
 be reproduced by a torch generator, so tests pass a draw source of their
 own that replays the reference's key sequence, plus ``init_params``.
+
+Observability flows through the single ``tracer=`` hook
+(:mod:`repro_torch.obs`, default :data:`repro_torch.obs.NULL_TRACER` —
+bit-identical trajectories): the runtime emits the ``cohort`` / ``plan`` /
+``stack`` / ``eval`` spans (the backends add ``local_train`` /
+``aggregate``), the ``batch_elements_real`` / ``batch_elements_padded`` /
+``h2d_bytes`` counters and the ``cohort_size`` gauge, and one clock-model
+ledger event per executed round (:func:`repro_torch.obs.ledger.
+round_record`); the summary lands in ``History.telemetry``. On a CUDA
+device an active tracer synchronizes at the end of the backend's spans,
+of each round and of each eval, where the reference blocks on its
+results.
 """
 from __future__ import annotations
 
@@ -21,15 +40,18 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.baselines import Policy
-from repro_torch.device import resolve_device
-from repro_torch.fl.backends import DenseBackend
+from repro_torch import obs
+from repro_torch.core.baselines import Policy, RoundPlan
+from repro_torch.device import resolve_device, sync
+from repro_torch.fl.backends import make_backend
 from repro_torch.fl.client import sample_client_batches
+from repro_torch.fl.spec import ExecSpec
 
 PyTree = Any
 
-__all__ = ["ModelAPI", "History", "Cohort", "StaticCohortSource", "Draws",
-           "RoundRuntime", "probe_s_max", "evaluate", "eval_metrics"]
+__all__ = ["ModelAPI", "History", "Cohort", "StaticCohortSource",
+           "RoundContext", "Draws", "RoundRuntime", "probe_s_max",
+           "evaluate", "eval_metrics"]
 
 
 @dataclasses.dataclass
@@ -48,6 +70,9 @@ class ModelAPI:
     layer_ids: Callable[[PyTree], PyTree]
     L: int
     name: str = "model"
+    # HeteroFL: width_masks(params, ratios (U,)) -> pytree with leading U
+    # axis, on the params' device
+    width_masks: Optional[Callable[[PyTree, np.ndarray], PyTree]] = None
 
 
 @dataclasses.dataclass
@@ -58,6 +83,15 @@ class History:
     deadlines: list = dataclasses.field(default_factory=list)
     train_loss: list = dataclasses.field(default_factory=list)
     method: str = ""
+    # tracer-enabled runs only: the run's telemetry summary — per-phase
+    # wall totals, counter totals, the per-round clock-model ledger, and
+    # its drift statistics (repro_torch.obs.Tracer.summary)
+    telemetry: dict = dataclasses.field(default_factory=dict)
+
+    def as_dict(self) -> dict:
+        """JSON-round-trippable dict (``json.dump``-able as-is)."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
 
 
 class Draws:
@@ -151,22 +185,118 @@ class StaticCohortSource:
         return self._cohort
 
 
+@dataclasses.dataclass
+class RoundContext:
+    """The round's view of the simulated clock and straggler model, for
+    backends that read it (``needs_ctx``).
+
+    ``sim_start``/``sim_end`` are the round's simulated-clock span
+    (``sim_end - sim_start`` = planned deadline); ``lam`` the Poisson rates
+    of the straggler draw; ``layer_s`` the mean per-layer backprop time
+    ``S_u / P_u``; ``B`` the comm/setup overhead — all over the active
+    (unpadded) cohort rows. ``regions`` holds the clients' edge-region ids
+    (None until fleets are ported: the hierarchical backend then splits the
+    cohort contiguously).
+    """
+
+    t: int
+    sim_start: float
+    sim_end: float
+    U_act: int
+    lam: np.ndarray        # (U_act,)
+    layer_s: np.ndarray    # (U_act,)
+    B: np.ndarray          # (U_act,)
+    regions: Any = None
+
+
+def _round_context(t: int, elapsed: float, plan: RoundPlan, cfg,
+                   U_act: int) -> RoundContext:
+    """Recover the straggler-model rates the plan was drawn under: every
+    policy prices a client's layer clock as Exp(S_u / P_u) within the
+    deadline ``plan.elapsed``, so ``lam = P/S * max(T - B, 0)``."""
+    T_d = float(plan.elapsed)
+    P = np.asarray(cfg.P, np.float32)[:U_act]
+    B = np.asarray(cfg.B_eff, np.float32)[:U_act]
+    S = np.asarray(plan.batch_sizes, np.float32)
+    S = (np.full(U_act, float(S), np.float32) if S.ndim == 0
+         else S[:U_act])
+    lam = P / np.maximum(S, 1.0) * np.maximum(T_d - B, 0.0)
+    layer_s = S / np.maximum(P, 1e-9)
+    return RoundContext(t=t, sim_start=float(elapsed),
+                        sim_end=float(elapsed) + T_d, U_act=int(U_act),
+                        lam=lam, layer_s=layer_s, B=B)
+
+
 class RoundRuntime:
-    """The serial federated round loop over the dense backend. ``device``
-    is where params, data and the round's compute live (the card unless the
-    caller passes another).
+    """The serial federated round loop, parameterized by execution backend.
+
+    HOW rounds execute is an :class:`repro_torch.fl.spec.ExecSpec`
+    (``exec=``): backend selection, its knobs (``chunk_size``,
+    ``regions``), the local update's ``local_iters`` / ``l2``, and the
+    client->server wire format. The individual kwargs remain as aliases —
+    both forms funnel through :meth:`ExecSpec.resolve`, so trajectories are
+    bit-identical either way. ``backend`` may also be an
+    :class:`repro_torch.fl.backends.ExecutionBackend` instance (passed
+    through). ``device`` is where params, data and the round's compute live
+    (the card unless the caller passes another). ``tracer``
+    (:class:`repro_torch.obs.Tracer`) enables telemetry for the runtime AND
+    the backend; the default records nothing and perturbs nothing.
     """
 
     def __init__(self, model: ModelAPI, policy: Policy, *,
-                 local_iters: int = 1, l2: float = 0.0, compression=None,
-                 device=None):
+                 exec: Optional[ExecSpec] = None, backend=None,
+                 chunk_size: Optional[int] = None,
+                 local_iters: Optional[int] = None,
+                 l2: Optional[float] = None, donate: Optional[bool] = None,
+                 compression=None, agg_impl: Optional[str] = None,
+                 tracer=None, device=None):
         self.model = model
         self.policy = policy
         self.device = resolve_device(device)
-        self.backend = DenseBackend(model, local_iters=local_iters, l2=l2,
-                                    compression=compression,
-                                    device=self.device)
+        self.tracer = tracer if tracer is not None else obs.NULL_TRACER
+        self.backend = make_backend(backend, model, exec=exec,
+                                    chunk_size=chunk_size,
+                                    local_iters=local_iters, l2=l2,
+                                    donate=donate, compression=compression,
+                                    agg_impl=agg_impl, device=self.device)
+        self.backend.set_tracer(self.tracer)
+        self._wmask_cache: dict[bytes, PyTree] = {}
 
+    # ------------------------------------------------------------------
+    def _width_masks(self, params: PyTree, ratios, U_pad: int) -> PyTree:
+        r = np.asarray(ratios, np.float32)
+        if r.shape[0] < U_pad:
+            # padded clients pose as full-width; their mask row is zero, so
+            # they never touch the overlap mean
+            r = np.concatenate([r, np.ones(U_pad - r.shape[0], np.float32)])
+        key = r.tobytes()
+        if key not in self._wmask_cache:
+            # bound the cache (each entry is a cohort-sized mask pytree)
+            while len(self._wmask_cache) >= 8:
+                self._wmask_cache.pop(next(iter(self._wmask_cache)))
+            self._wmask_cache[key] = self.model.width_masks(params, r)
+        return self._wmask_cache[key]
+
+    def _prepare(self, cohort: Cohort, plan: RoundPlan, idx, s_max: int,
+                 U_pad: int):
+        """Sample the per-client minibatches from the raw draws ``idx``
+        (drawn at the UNPADDED cohort width, so every backend gets the same
+        minibatches), then pad the cohort axis to the backend's width with
+        all-zero batches, weights and mask rows: their aggregation
+        coefficients are 0, so they contribute nothing."""
+        U_act = cohort.size
+        xb, yb, wb = sample_client_batches(idx, cohort.x, cohort.y,
+                                           cohort.counts, plan.batch_sizes,
+                                           s_max)
+        mask = plan.mask.to(device=xb.device, dtype=torch.float32)
+        if U_pad != U_act:
+            def zrow(a):
+                return torch.cat([a, a.new_zeros((U_pad - U_act,)
+                                                 + tuple(a.shape[1:]))])
+            xb, yb, wb, mask = zrow(xb), zrow(yb), zrow(wb), zrow(mask)
+        return xb, yb, wb, mask, U_act
+
+    # ------------------------------------------------------------------
     def run(self, source, *, rounds: int, T_max: float, eta, s_max: int,
             test_x, test_y, seed: int = 0, eval_every: int = 1,
             on_round: Optional[Callable] = None,
@@ -185,34 +315,83 @@ class RoundRuntime:
         """
         model, policy, backend, dev = (self.model, self.policy, self.backend,
                                        self.device)
+        if policy.name == "heterofl" and model.width_masks is None:
+            raise ValueError("model does not support HeteroFL width masks")
         tx = torch.as_tensor(test_x, device=dev)
         ty = torch.as_tensor(test_y, device=dev)
         draws = Draws(seed) if draws is None else draws
         params = (model.init(draws.gen, dev) if init_params is None else
                   init_params)
         eta = np.asarray(eta, np.float32)
+        U_pad = backend.cohort_pad(source.cohort_size)
+        backend.reset_state()
+        needs_ctx = bool(getattr(backend, "needs_ctx", False))
 
+        tracer = self.tracer
         hist = History(method=policy.name)
         elapsed = 0.0
+        wall_start = obs.now()
         for t in range(rounds):
-            cohort = source.round_cohort(t)
-            plan = policy.round(draws, t)
+            tracer.set_round(t + 1)
+            wall_round0 = obs.now() if tracer.active else 0.0
+            with tracer.span("cohort"):
+                cohort = source.round_cohort(t)
+            with tracer.span("plan"):
+                plan = policy.round(draws, t)
             if elapsed + plan.elapsed > T_max * (1 + 1e-6):
                 break
-            xb, yb, wb = sample_client_batches(
-                draws.batch_indices(t, cohort.size, s_max), cohort.x,
-                cohort.y, cohort.counts, plan.batch_sizes, s_max)
-            params = backend.run_round(params, xb, yb, wb, plan.mask, plan.p,
+            with tracer.span("stack"):
+                xb, yb, wb, mask, U_act = self._prepare(
+                    cohort, plan, draws.batch_indices(t, cohort.size, s_max),
+                    s_max, U_pad)
+            wmasks = None
+            if plan.width_ratios is not None:
+                t0 = obs.now()
+                wmasks = self._width_masks(params, plan.width_ratios, U_pad)
+                tracer.span_record("stack", t0, obs.now() - t0,
+                                   part="wmasks")
+            ctx = (_round_context(t, elapsed, plan, policy.cfg, U_act)
+                   if needs_ctx else None)
+            params = backend.run_round(params, xb, yb, wb, mask, plan.p,
                                        float(eta[t]),
-                                       bias_correct=bool(plan.bias_correct))
+                                       bias_correct=bool(plan.bias_correct),
+                                       wmasks=wmasks, ctx=ctx)
             elapsed += plan.elapsed
+            if tracer.active:
+                # the clock-model ledger row: planned deadline vs simulated
+                # clock vs measured wall vs the model's view
+                tracer.count("h2d_bytes", obs.tree_bytes((xb, yb, wb, mask)))
+                sync(dev)
+                wall_now = obs.now()
+                tracer.count(
+                    "batch_elements_real",
+                    int(np.minimum(np.asarray(plan.batch_sizes,
+                                              np.float64)[:U_act],
+                                   float(s_max)).sum()))
+                tracer.count("batch_elements_padded", U_pad * s_max)
+                tracer.gauge("cohort_size", U_act)
+                tracer.event("round", **obs.round_record(
+                    t=t, plan=plan, cfg=policy.cfg, L=model.L, U_act=U_act,
+                    U_pad=U_pad, s_max=s_max, sim_total=elapsed,
+                    wall_round_s=wall_now - wall_round0,
+                    wall_total_s=wall_now - wall_start,
+                    regions=getattr(backend, "last_regions", None) or None))
             if (t % eval_every == 0) or (t == rounds - 1):
-                acc, loss = eval_metrics(model, params, tx, ty)
+                with tracer.span("eval"):
+                    acc, loss = eval_metrics(model, params, tx, ty)
                 hist.times.append(elapsed)
                 hist.rounds.append(t + 1)
                 hist.accuracy.append(acc)
                 hist.deadlines.append(float(plan.elapsed))
                 hist.train_loss.append(loss)
+                if tracer.active:
+                    tracer.event("eval", round=t + 1, available=None,
+                                 cohort=U_act, sim_total=elapsed,
+                                 T_deadline=float(plan.elapsed), acc=acc,
+                                 loss=loss)
             if on_round is not None:
                 on_round(t, params, hist)
+        tracer.set_round(None)
+        if tracer.active:
+            hist.telemetry = tracer.summary()
         return params, hist

@@ -8,12 +8,15 @@ PyTorch (port of ``repro.models.paper_models``).
 Params are the reference's pytree: a list of per-layer dicts of float32
 tensors, HWIO conv weights, NHWC activations — so params and ``layer_ids``
 cross between the two packages unchanged (:mod:`repro_torch.convert`).
-``init(gen, device)`` draws from a ``torch.Generator``.
+``init(gen, device)`` draws from a ``torch.Generator``. HeteroFL width
+masks (``ModelAPI.width_masks``) are provided for all models.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.fl.runtime import ModelAPI
@@ -26,6 +29,49 @@ __all__ = ["make_mlp", "make_cnn", "make_vgg"]
 def _layer_ids(params):
     """Whole-tensor layer ids: every leaf of layer i maps to ``i``."""
     return [{k: i for k in layer} for i, layer in enumerate(params)]
+
+
+def _hidden_width_masks(params, ratios: np.ndarray):
+    """HeteroFL: client u updates the first ceil(r_u * width) output units
+    of every hidden layer (and the matching input slices of the next
+    layer), as the reference slices them: dense weights ``(d_in, d_out)``,
+    conv weights HWIO ``(k, k, c_in, c_out)``, 1-D per-output-unit leaves
+    (bias, norm scale/offset) on their only axis. The output layer's units
+    are never width-masked; its input dim follows the previous layer's
+    kept units. Returns float32 masks with a leading client axis, built on
+    the params' device."""
+    L = len(params)
+    r = [float(v) for v in np.asarray(ratios, np.float32)]
+    U = len(r)
+    dev = params[0]["w"].device
+
+    def keep(fracs, dim):
+        k = ([dim] * U if fracs is None else
+             [max(1, int(math.ceil(f * dim))) for f in fracs])
+        return torch.tensor(k, device=dev)
+
+    def first(n, k):
+        """(U, n): entry j of row u is kept iff j < k[u]."""
+        return torch.arange(n, device=dev)[None, :] < k[:, None]
+
+    masks = []
+    prev = None               # fraction kept of the previous layer's outputs
+    for i, layer in enumerate(params):
+        w = layer["w"]
+        out_dim = w.shape[-1]
+        in_dim = w.shape[0] if w.dim() == 2 else w.shape[2]
+        k_out = keep(None if i == L - 1 else r, out_dim)
+        m = (first(in_dim, keep(prev, in_dim))[:, :, None]
+             & first(out_dim, k_out)[:, None, :])          # (U, in, out)
+        if w.dim() != 2:                                    # HWIO conv
+            m = m[:, None, None].expand((U,) + tuple(w.shape))
+        layer_mask = {"w": m.to(torch.float32).contiguous()}
+        for key, leaf in layer.items():
+            if key != "w":
+                layer_mask[key] = first(leaf.shape[0], k_out).to(torch.float32)
+        masks.append(layer_mask)
+        prev = None if i == L - 1 else r
+    return masks
 
 
 def _dense(h: torch.Tensor, layer: dict) -> torch.Tensor:
@@ -58,7 +104,8 @@ def make_mlp(input_dim: int = 784, hidden: Sequence[int] = (32, 16),
         return cross_entropy(forward(params, x), y, w)
 
     return ModelAPI(init=init, loss=loss, predict=forward,
-                    layer_ids=_layer_ids, L=L, name="mlp")
+                    layer_ids=_layer_ids, L=L, name="mlp",
+                    width_masks=_hidden_width_masks)
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +134,8 @@ def make_cnn(in_hw: int = 28, in_c: int = 1, n_classes: int = 10,
         return cross_entropy(forward(params, x), y, w)
 
     return ModelAPI(init=init, loss=loss, predict=forward,
-                    layer_ids=_layer_ids, L=L, name="cnn")
+                    layer_ids=_layer_ids, L=L, name="cnn",
+                    width_masks=_hidden_width_masks)
 
 
 # ---------------------------------------------------------------------------
@@ -152,4 +200,5 @@ def make_vgg(depth: int = 11, in_hw: int = 32, in_c: int = 3,
         return cross_entropy(forward(params, x), y, w)
 
     return ModelAPI(init=init, loss=loss, predict=forward,
-                    layer_ids=_layer_ids, L=L, name=f"vgg{depth}")
+                    layer_ids=_layer_ids, L=L, name=f"vgg{depth}",
+                    width_masks=_hidden_width_masks)

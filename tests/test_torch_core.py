@@ -157,10 +157,33 @@ def test_policies_match_given_same_draws(method):
         assert pp.elapsed == pytest.approx(rp.elapsed, rel=1e-6)
 
 
-def test_heterofl_waits_for_a_later_slice():
-    _, cfg = _cfgs(**QS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pb.make_policy("heterofl", cfg, m=1.0, device="cpu")
+def test_heterofl_matches_reference_given_same_draws():
+    ref_cfg, cfg = _cfgs(**QS)
+    rpol = rb.make_policy("heterofl", ref_cfg, m=0.76)
+    ppol = pb.make_policy("heterofl", cfg, m=0.76, device="cpu")
+    assert isinstance(ppol, pb.HeteroFLPolicy)
+    assert ppol.LEVELS == rpol.LEVELS
+    assert np.array_equal(ppol.ratios, rpol.ratios)
+    assert ppol.ratios.dtype == rpol.ratios.dtype == np.float32
+    assert ppol.describe() == rpol.describe()
+    for t in (0, 7, 24):
+        key = jax.random.PRNGKey(200 + t)
+        rp = rpol.round(key, t)
+        pp = ppol.round(_ReplayDraws(key), t)
+        assert np.array_equal(pp.mask.numpy(), np.asarray(rp.mask))
+        assert np.array_equal(pp.batch_sizes.numpy(),
+                              np.asarray(rp.batch_sizes))
+        assert np.array_equal(pp.p.numpy(), np.asarray(rp.p))
+        assert np.array_equal(pp.width_ratios, rp.width_ratios)
+        assert pp.bias_correct is rp.bias_correct is False
+        assert pp.elapsed == pytest.approx(rp.elapsed, rel=1e-6)
+
+
+@pytest.mark.parametrize("U", [4, 7, 10, 33])
+def test_heterofl_capability_ratios_match_reference(U):
+    P = np.random.default_rng(U).uniform(0.5, 4.0, U).astype(np.float32)
+    assert np.array_equal(pb.HeteroFLPolicy._capability_ratios(P),
+                          rb.HeteroFLPolicy._capability_ratios(P))
 
 
 def test_solve_adam_matches_reference():

@@ -297,6 +297,100 @@ def test_dense_round_fold_matches_plain_on_card(cuda, comp):
             assert _close(out, ref, 1e-5, 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_one_client_fold_matches_plain_on_card(cuda, dtype):
+    """The temporal backend's fold: U = 1 tables (one client's leaves and
+    its (1, L) coefficient row), stacked and scalar layer ids, ragged F."""
+    from repro_torch.kernels.adel_agg import (adel_agg_grouped,
+                                              adel_agg_grouped_plain,
+                                              adel_agg_q8_grouped,
+                                              adel_agg_q8_grouped_plain)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    L = 6
+    shapes = [(1, 1, 7), (1, 3, 300), (1, 1, 4096), (1, 2, 1)]
+    ids = [2, torch.tensor([0, 1, 5]), 4, torch.tensor([3, 3])]
+    coeff = torch.rand((1, L), generator=gen, device=cuda)
+    leaves = [torch.randn(sh, generator=gen, device=cuda) for sh in shapes]
+    if dtype == torch.int8:
+        qs = [torch.randint(-127, 128, sh, generator=gen, device=cuda,
+                            dtype=torch.int8) for sh in shapes]
+        ss = [torch.rand(sh[:2], generator=gen, device=cuda) for sh in shapes]
+        pairs = zip(adel_agg_q8_grouped(qs, ss, ids, coeff),
+                    adel_agg_q8_grouped_plain(qs, ss, ids, coeff))
+        tol = TOL[torch.float32]
+    else:
+        leaves = [x.to(dtype) for x in leaves]
+        pairs = zip(adel_agg_grouped(leaves, ids, coeff),
+                    adel_agg_grouped_plain(leaves, ids, coeff))
+        tol = TOL[dtype]
+    for out, ref in pairs:
+        assert _close(out, ref, **tol), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.parametrize("comp", [None, "int8"])
+@pytest.mark.parametrize("backend,knobs,launches", [
+    ("chunked", {"chunk_size": 2}, 2), ("temporal", {}, 4),
+    ("hierarchical", {"regions": 2}, 2)])
+def test_backend_round_on_card_matches_cpu(cuda, backend, knobs, launches,
+                                           comp):
+    """A CNN round of each backend on the card: one grouped fold launch a
+    chunk, client or region (f32 uncompressed, int8 compressed), and the
+    same round on the CPU (plain versions) to the dense round's
+    tolerance, cuDNN off."""
+    from repro_torch.fl.backends import make_backend
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_q8, adel_agg_q8_grouped)
+    from repro_torch.models.paper_models import make_cnn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = make_cnn()
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda p: p + 0.05 * torch.randn(p.shape, generator=gen),
+                      model.init(gen, "cpu"))
+    rng = np.random.default_rng(0)
+    U, S = 4, 6
+    xb = torch.from_numpy(rng.standard_normal((U, S, 28, 28, 1)).astype(
+        np.float32))
+    yb = torch.from_numpy(rng.integers(0, 10, (U, S)))
+    wb = torch.full((U, S), 1.0 / S)
+    mask = torch.from_numpy((rng.uniform(size=(U, model.L)) > 0.3).astype(
+        np.float32))
+    mask[0] = 1.0
+    p = torch.full((model.L,), 0.1)
+    counters = (adel_agg_grouped, adel_agg_q8_grouped, adel_agg_q8, adel_agg)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        before = [k.launches for k in counters]
+        bk = make_backend(backend, model, compression=comp, device=dev,
+                          **knobs)
+        with torch.backends.cudnn.flags(enabled=False):
+            out = bk.run_round(tree_map(lambda a: a.to(dev), params),
+                               xb, yb, wb, mask, p, 0.5, bias_correct=True)
+        outs[dev] = [a.cpu() for a in tree_leaves(out)]
+        done = tuple(k.launches - b for k, b in zip(counters, before))
+        expect = (0, 0, 0, 0) if dev == "cpu" else (
+            (launches, 0, 0, 0) if comp is None else (0, launches, 0, 0))
+        assert done == expect, (dev, done)
+    steps = [0.0] * len(outs["cpu"])
+    if comp == "int8":
+        # a delta on a rounding boundary may land one code apart: allow one
+        # quantization step per client, sum_u c[u, l] * scale[u, l]
+        from repro_torch.core.aggregation import layer_coefficients
+        from repro_torch.core.compression import (compress_deltas,
+                                                  make_compression)
+        payload = compress_deltas(bk._deltas(tree_map(lambda a: a.cuda(),
+                                                      params),
+                                             xb.cuda(), yb.cuda(), wb.cuda(),
+                                             0.5),
+                                  model.layer_ids(params),
+                                  make_compression("int8"))
+        c = layer_coefficients(mask, p)
+        steps = [float((c[:, l] * s.cpu()[:, 0]).sum()) for l, (_, s) in
+                 zip(tree_leaves(model.layer_ids(params)), payload)]
+    for a, b, step in zip(outs["cuda"], outs["cpu"], steps):
+        assert _close(a, b, 1e-4, 1e-5 + 1.0001 * step), (a - b).abs().max()
+
+
 # ---------------------------------------------------------------------------
 # the LM kernels: flash attention and the SSD chunk scan
 # ---------------------------------------------------------------------------

@@ -38,7 +38,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.paper_models, repro_torch.core.scheduler, "
             "repro_torch.convert, repro_torch.configs, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
-            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan; "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan, "
+            "repro_torch.obs, repro_torch.obs.timeline, repro_torch.fl.spec, "
+            "repro_torch.fl.backends; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'")
@@ -56,7 +58,8 @@ def test_entry_points_default_to_the_card():
     _cardless()
     from repro_torch.core.scheduler import solve
     from repro_torch.core.types import AnalysisConfig
-    from repro_torch.fl.backends import DenseBackend
+    from repro_torch.fl.backends import (DenseBackend, HierarchicalBackend,
+                                         make_backend)
     from repro_torch.fl.runtime import RoundRuntime
     from repro_torch.fl.server import run_federated
     from repro_torch.models.paper_models import make_mlp
@@ -68,6 +71,11 @@ def test_entry_points_default_to_the_card():
         solve(cfg, "adam", steps=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DenseBackend(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HierarchicalBackend(model, regions=2)
+    for backend in ("chunked", "temporal", "hierarchical"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_backend(backend, model)
     policy = make_policy("salf", cfg, m=2.0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RoundRuntime(model, policy)

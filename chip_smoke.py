@@ -52,8 +52,20 @@
    tracer (rounds 2-4), against the traced and the untraced wall a round,
    with the aggregate phase split into compress, fold and update by this
    script's own synchronized timers.
-7. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
-8. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
+7. The shard_map backend on ``torch.distributed``: over a one-rank NCCL
+   group in this process (one round bit-identical to dense, checked to
+   1e-4 of the update; one grouped fold launch a round and no other fold
+   launch by ``torch.profiler``; the NCCL kernels it counts; wall a
+   round), and over 2 ranks spawned on ``cuda:0`` joined by gloo (each
+   trains 5 of the 10 clients; both exit codes checked; each rank's round
+   within 1e-4 of this process's dense update; one grouped fold launch a
+   rank a round), uncompressed and int8. Then the prefetch round loop
+   against serial on dense (none, int8) and on shard_map over the NCCL
+   rank, 5 rounds evaluating every round: History equal and params
+   bit-equal under ``cudnn.deterministic``, wall a steady round in turns,
+   the device-idle share, and the pipeline counters of a traced run.
+8. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
+9. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
    (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
    each LM kernel per prefill (an ``ssd_scan`` launch is one three-phase
    scan, four kernels) and finite (2, 32256) logits, then profiled (flash
@@ -61,8 +73,8 @@
    ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
    prefill (kernels) against stepping the decode path (plain) over 1152
    tokens, past the 1024 window, at full width cut to 4 blocks in f32.
-9. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
-   line.
+10. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+    line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside it; any failed phase exits non-zero.
@@ -75,6 +87,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -433,10 +446,11 @@ def fold_round(torch, leaf_F: dict) -> dict:
 # the main path
 # ---------------------------------------------------------------------------
 
-def vgg_setup(torch) -> dict:
+def vgg_setup(torch, schedule=None) -> dict:
     """The VGG-11 cell: model at full width, synthetic CIFAR split over
     U=10 Dirichlet(0.5) clients, the Fig.-3 regime's config and ADEL's
-    schedule from ``solve(cfg, "adam", steps=800)``."""
+    schedule from ``solve(cfg, "adam", steps=800)`` (or the ``schedule``
+    given: a spawned rank takes its parent's)."""
     from repro_torch.core.baselines import make_policy
     from repro_torch.core.scheduler import solve
     from repro_torch.core.types import AnalysisConfig
@@ -453,11 +467,13 @@ def vgg_setup(torch) -> dict:
     cfg = AnalysisConfig.default(U=U_MAIN, L=model.L, R=R,
                                  T_max=R * model.L * 0.85, eta0=0.05,
                                  eta_decay=0.02, seed=0)
-    t0 = time.perf_counter()
-    schedule = solve(cfg, "adam", steps=800, device="cuda")
-    print(f"[vgg11] solve(adam, 800 steps) {time.perf_counter() - t0:.3f} s "
-          f"m={schedule.m:.4f} T={[round(float(v), 4) for v in schedule.T]} "
-          f"S_max={int(schedule.batch_sizes(cfg).max())}", flush=True)
+    if schedule is None:
+        t0 = time.perf_counter()
+        schedule = solve(cfg, "adam", steps=800, device="cuda")
+        print(f"[vgg11] solve(adam, 800 steps) {time.perf_counter() - t0:.3f} "
+              f"s m={schedule.m:.4f} "
+              f"T={[round(float(v), 4) for v in schedule.T]} "
+              f"S_max={int(schedule.batch_sizes(cfg).max())}", flush=True)
     policy = make_policy("adel", cfg, schedule=schedule, device="cuda")
     return {"model": model, "cfg": cfg, "policy": policy,
             "data": (cx, cy, counts, x_te, y_te)}
@@ -617,10 +633,10 @@ def fold_slices(torch, leaf_F: dict) -> None:
 
 
 def run_rounds(torch, vgg: dict, rounds: int, *, exec=None, policy=None,
-               tracer=None, on_round=None):
+               tracer=None, on_round=None, eval_every=None):
     """``rounds`` rounds of the VGG-11 cell through the round runtime (the
     loop ``run_federated`` drives), evaluating after the first and the
-    last."""
+    last (or every ``eval_every`` rounds)."""
     from repro_torch.fl.runtime import (RoundRuntime, StaticCohortSource,
                                         probe_s_max)
     cfg = vgg["cfg"]
@@ -632,7 +648,8 @@ def run_rounds(torch, vgg: dict, rounds: int, *, exec=None, policy=None,
     source = StaticCohortSource(cx, cy, counts, device="cuda")
     return runtime.run(source, rounds=rounds, T_max=cfg.T_max, eta=cfg.eta,
                        s_max=s_max, test_x=x_te, test_y=y_te, seed=0,
-                       eval_every=max(rounds - 1, 1), on_round=on_round)
+                       eval_every=eval_every or max(rounds - 1, 1),
+                       on_round=on_round)
 
 
 def timed_rounds(torch, vgg: dict, rounds: int, **kw):
@@ -884,6 +901,288 @@ def vgg_phases(torch, vgg: dict) -> None:
               f"{ms['aggregate']:.3f}", flush=True)
         check(len(split["fold"]) == R and len(split["update"]) == R,
               f"{tag} the timers saw {split}")
+
+
+# ---------------------------------------------------------------------------
+# the shard_map backend on torch.distributed, and the prefetch round loop
+# ---------------------------------------------------------------------------
+
+SHARD_ROUNDS = 3
+PIPE_ROUNDS = 5
+GLOO_RANKS = 2
+SPAWN_TIMEOUT_S = 420
+
+
+def nccl_kernels(prof) -> dict:
+    """Device launches of each NCCL kernel in a profile, by name."""
+    from torch.autograd import DeviceType
+    return {e.key[:60]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()}
+
+
+def vgg_shard_map_nccl(torch, vgg: dict) -> dict:
+    """shard_map over the one-rank NCCL group this process holds, on the
+    VGG-11 cell, uncompressed and int8: one round from the same params,
+    batches and mask against the dense backend's (bit-identity expected:
+    the all_reduce of one rank is a copy), wall a round over 3 rounds, and
+    over 3 more the grouped fold launches (one a round, no other fold
+    launch) and the NCCL kernels that ``torch.profiler`` counts. Returns
+    each fold kernel's launches a round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.tree import tree_leaves
+    inputs = round_inputs(torch, vgg, vgg["policy"])
+    counters = fold_counters()
+    R = SHARD_ROUNDS
+    per_path = {}
+    for comp in (None, "int8"):
+        kernel = "adel_agg_grouped" if comp is None else "adel_agg_q8_grouped"
+        tag = f"[vgg11 shard_map] nccl x1 {comp or 'none':4s}"
+        spec = ExecSpec(backend="shard_map", compression=comp)
+        dense_out = one_round(torch, vgg, inputs, ExecSpec(compression=comp))
+        out = one_round(torch, vgg, inputs, spec)
+        ratio = agreement(torch, inputs, out, dense_out)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(out),
+                                                     tree_leaves(dense_out)))
+        hist, wall = timed_rounds(torch, vgg, R, exec=spec)
+        check(all(math.isfinite(v) for v in hist.train_loss),
+              f"{tag} loss not finite")
+        for k in counters.values():
+            k.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_rounds(torch, vgg, R, exec=spec)
+            torch.cuda.synchronize()
+        seen = fold_launches(prof)
+        fired = {k: c.launches for k, c in counters.items()}
+        nccl = nccl_kernels(prof)
+        print(f"{tag} wall_ms_per_round={[round(w, 3) for w in wall]} "
+              f"steady_ms={wall[1]:.3f} fold_launches_per_round "
+              + " ".join(f"{k}={v / R:g}" for k, v in seen.items())
+              + f" (wrappers: {fired}) nccl_kernels_per_round="
+              f"{sum(nccl.values()) / R:g} {nccl} one_round "
+              f"max|params-dense|/max|dense update|={ratio:.3e} "
+              f"bit_identical={same}", flush=True)
+        want = {k: 0 for k in seen}
+        want[kernel] = R
+        check(seen == want, f"{tag} fold launches {seen}, want {want}")
+        check(fired == {k: (R if k == kernel else 0) for k in fired},
+              f"{tag} wrapper launch counts {fired}")
+        check(ratio <= AGREE_UPDATE,
+              f"{tag} one round disagrees with dense: {ratio:.3e}")
+        per_path["adel_agg" if comp is None else "adel_agg_q8"] = seen[kernel] / R
+    return per_path
+
+
+def shard_rank(rank: int, world: int, tmp: str) -> None:
+    """One spawned rank of ``[vgg11 shard_map] gloo``: joins a gloo group
+    over a FileStore in ``tmp``, builds the VGG-11 cell on ``cuda:0`` with
+    its parent's schedule, and for each wire format runs one round from
+    the parent's inputs (held against the parent's dense update) and 3
+    rounds through the runtime; writes its report to ``rank<r>.json``. An
+    exception exits the process non-zero."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(Path(tmp) / "gloo_store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        blob = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+        vgg = vgg_setup(torch, schedule=blob["schedule"])
+        inputs = {"params": tree_map(lambda a: a.cuda(), blob["params"]),
+                  "arrays": tuple(a.cuda() for a in blob["arrays"]),
+                  "eta": blob["eta"], "plan": blob["plan"]}
+        counters = fold_counters()
+        report = {"rank": rank, "device": torch.cuda.get_device_name(0)}
+        for name, comp in (("none", None), ("int8", "int8")):
+            spec = ExecSpec(backend="shard_map", compression=comp)
+            for k in counters.values():
+                k.launches = 0
+            out = one_round(torch, vgg, inputs, spec)
+            dense = tree_map(lambda a: a.cuda(), blob["dense"][name])
+            ratio = agreement(torch, inputs, out, dense)
+            hist, wall = timed_rounds(torch, vgg, SHARD_ROUNDS, exec=spec)
+            report[name] = {
+                "ratio": ratio, "wall_ms": wall, "loss": hist.train_loss,
+                "fired": {k: c.launches for k, c in counters.items()}}
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def vgg_shard_map_gloo(torch, vgg: dict, tmp: str) -> None:
+    """shard_map over 2 spawned ranks on ``cuda:0`` joined by gloo (NCCL
+    refuses two ranks on one card; gloo sums CUDA tensors through the
+    host): each rank trains and folds 5 of the 10 clients. Both exit codes
+    are checked; rank 0's round is held to 1e-4 of the parent's dense
+    update, and each rank launches one grouped fold a round."""
+    import multiprocessing
+
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.tree import tree_map
+    inputs = round_inputs(torch, vgg, vgg["policy"])
+    cpu = {"schedule": vgg["policy"].schedule, "eta": inputs["eta"],
+           "plan": inputs["plan"],
+           "params": tree_map(lambda a: a.cpu(), inputs["params"]),
+           "arrays": tuple(a.cpu() for a in inputs["arrays"]), "dense": {}}
+    for name, comp in (("none", None), ("int8", "int8")):
+        cpu["dense"][name] = tree_map(lambda a: a.cpu(), one_round(
+            torch, vgg, inputs, ExecSpec(compression=comp)))
+    torch.save(cpu, Path(tmp) / "inputs.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, GLOO_RANKS, tmp))
+             for r in range(GLOO_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    try:
+        deadline = t0 + SPAWN_TIMEOUT_S
+        for proc in procs:
+            proc.join(max(deadline - time.perf_counter(), 1.0))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(30)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(30)
+    codes = [proc.exitcode for proc in procs]
+    print(f"[vgg11 shard_map] gloo x{GLOO_RANKS} on cuda:0: exit codes "
+          f"{codes} in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(codes == [0] * GLOO_RANKS, f"a spawned rank failed: {codes}")
+    R = SHARD_ROUNDS
+    for rank in range(GLOO_RANKS):
+        report = json.loads((Path(tmp) / f"rank{rank}.json").read_text())
+        for name, kernel in (("none", "adel_agg_grouped"),
+                             ("int8", "adel_agg_q8_grouped")):
+            rep = report[name]
+            print(f"[vgg11 shard_map] gloo x{GLOO_RANKS} rank {rank} "
+                  f"{name:4s} wall_ms_per_round="
+                  f"{[round(w, 3) for w in rep['wall_ms']]} loss="
+                  f"{rep['loss']} fold wrappers (1 + {R} rounds)="
+                  f"{rep['fired']} one_round max|params-dense|/max|dense "
+                  f"update|={rep['ratio']:.3e}", flush=True)
+            check(all(math.isfinite(v) for v in rep["loss"]),
+                  f"gloo rank {rank} {name}: loss not finite")
+            check(rep["fired"] == {k: (R + 1 if k == kernel else 0)
+                                   for k in rep["fired"]},
+                  f"gloo rank {rank} {name}: fold launches {rep['fired']}")
+            check(rep["ratio"] <= AGREE_UPDATE,
+                  f"gloo rank {rank} {name}: one round disagrees with the "
+                  f"dense update: {rep['ratio']:.3e}")
+
+
+def idle_share(torch, vgg: dict, spec) -> tuple:
+    """(wall ms, device-busy ms) a steady round (rounds 2 .. R-1 of
+    ``PIPE_ROUNDS``, evaluating every round) from a CUDA-only
+    ``torch.profiler`` trace between synchronized ``on_round`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    R = PIPE_ROUNDS
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+
+    def on_round(t, params, hist):
+        torch.cuda.synchronize()
+        if t == 0:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif t == R - 2:
+            window["t1"] = time.perf_counter()
+            prof.stop()
+
+    run_rounds(torch, vgg, R, exec=spec, eval_every=1, on_round=on_round)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    n = R - 2
+    return 1e3 * (window["t1"] - window["t0"]) / n, busy / n
+
+
+PIPE_CASES = (("dense", None), ("dense", "int8"), ("shard_map", None))
+# timed runs: PIPE_TURNS x (serial, prefetch, prefetch, serial)
+PIPE_TURNS = 3
+PIPE_COUNTERS = ("prefetch_rounds", "prefetch_overlap_s", "dispatch_wait_s",
+                 "warm_up_s")
+
+
+def vgg_pipeline(torch, vgg: dict) -> None:
+    """Serial against prefetch on the VGG-11 cell, 5 rounds evaluating
+    every round: dense uncompressed and int8, and shard_map over the
+    one-rank NCCL group this process holds. History equal and params
+    bit-equal under ``cudnn.deterministic`` (set for the comparison and
+    restored; whether serial against serial is bit-identical without it is
+    printed). For each mode: wall a steady round (rounds 2-4, host clock
+    between synchronized ``on_round`` calls) over 12 runs in turns (serial,
+    prefetch, prefetch, serial; three times); the device-idle share from
+    ``torch.profiler``; and a traced run's pipeline counters."""
+    from repro_torch import obs
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.tree import tree_leaves
+    R = PIPE_ROUNDS
+
+    def same(a, b):
+        (pa, ha), (pb, hb) = a, b
+        return ha.as_dict() == hb.as_dict() and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(pa),
+                                              tree_leaves(pb)))
+
+    for backend, comp in PIPE_CASES:
+        tag = f"[vgg11 pipeline] {backend:9s} {comp or 'none':4s}"
+        specs = {m: ExecSpec(backend=backend, compression=comp, pipeline=m)
+                 for m in ("serial", "prefetch")}
+        serial_twice = same(
+            *(run_rounds(torch, vgg, R, exec=specs["serial"], eval_every=1)
+              for _ in range(2)))
+        flag = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {m: run_rounds(torch, vgg, R, exec=specs[m], eval_every=1)
+                    for m in specs}
+        finally:
+            torch.backends.cudnn.deterministic = flag
+        identical = same(runs["serial"], runs["prefetch"])
+        hist = runs["prefetch"][1]
+        print(f"{tag} prefetch_vs_serial_bit_identical(cudnn.deterministic)="
+              f"{identical} serial_vs_serial_bit_identical(default)="
+              f"{serial_twice} rounds={hist.rounds} acc={hist.accuracy} "
+              f"loss={hist.train_loss}", flush=True)
+        check(identical, f"{tag} prefetch is not bit-identical to serial")
+        check(all(math.isfinite(v) for v in hist.train_loss),
+              f"{tag} loss not finite")
+        walls = {"serial": [], "prefetch": []}
+        for m in ("serial", "prefetch", "prefetch", "serial") * PIPE_TURNS:
+            _, wall = timed_rounds(torch, vgg, R, exec=specs[m],
+                                   eval_every=1)
+            walls[m].append(sum(wall[1:R - 1]) / (R - 2))
+        for m, spec in specs.items():
+            wall_ms, busy_ms = idle_share(torch, vgg, spec)
+            tracer = obs.Tracer(obs.MemorySink())
+            _, traced = run_rounds(torch, vgg, R, exec=spec, eval_every=1,
+                                   tracer=tracer)
+            counters = traced.telemetry["counters"]
+            phases = traced.telemetry["phases"]
+            planner = {ph: 1e3 * phases[ph]["total_s"] / phases[ph]["count"]
+                       for ph in ("plan", "stack")}
+            print(f"{tag} {m:8s} steady_wall_ms_per_round (rounds 2-4, "
+                  f"turns)={[round(w, 3) for w in walls[m]]} mean="
+                  f"{sum(walls[m]) / len(walls[m]):.3f} profiled: "
+                  f"wall_ms_per_round={wall_ms:.3f} device_busy_ms_per_round="
+                  f"{busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.4f} "
+                  f"traced: plan_ms={planner['plan']:.3f} stack_ms="
+                  f"{planner['stack']:.3f} (a round, where the planner ran) "
+                  + " ".join(f"{k}={counters.get(k, 0)}"
+                             for k in PIPE_COUNTERS), flush=True)
+            if m == "prefetch":
+                check(counters.get("prefetch_rounds") == R - 1
+                      and counters.get("warm_up_s", 0) > 0,
+                      f"{tag} prefetch counters missing: {counters}")
 
 
 def mlp_quickstart(torch) -> float:
@@ -1329,6 +1628,18 @@ def main() -> int:
     backend_launches = vgg_backends(torch, vgg)
     vgg_heterofl(torch, vgg)
     vgg_phases(torch, vgg)
+    with tempfile.TemporaryDirectory() as tmp:
+        import torch.distributed as dist
+        store = dist.FileStore(str(Path(tmp) / "nccl_store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            shard = vgg_shard_map_nccl(torch, vgg)
+            vgg_pipeline(torch, vgg)
+        finally:
+            dist.destroy_process_group()
+        vgg_shard_map_gloo(torch, vgg, tmp)
+    for path, n in shard.items():
+        backend_launches[path]["shard_map"] = n
     mlp_quickstart(torch)
     prefill = hymba_prefill(torch)
     launches.update(prefill["launches"])

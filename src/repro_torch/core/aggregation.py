@@ -12,6 +12,12 @@ client axis. Every fold here goes through the hand-written kernel
 launch per leaf dtype on the card) in the canonical ``(U, L_leaf, F)``
 layout.
 
+Across processes (:class:`repro_torch.fl.backends.ShardMapBackend`), each
+rank folds its own slice of the cohort against the global counts and the
+partials are summed with ``torch.distributed.all_reduce``
+(:func:`aggregate_grads_local`, :func:`all_reduce_tree`), the port of the
+reference's ``jax.lax.psum`` under ``shard_map``.
+
 Parameter->layer mapping: ``layer_ids(params)`` is a pytree congruent with
 ``params`` whose leaves are an ``int`` (the whole tensor belongs to that
 layer) or an ``(L,)`` integer tensor (the leading axis is a stacked-layer
@@ -22,12 +28,14 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.ops import adel_aggregate, fold_tree
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["layer_coefficients", "weight_by_layer", "aggregate_with_coeffs",
-           "aggregate_grads", "aggregate_grads_chunk",
+           "aggregate_grads", "aggregate_grads_chunk", "aggregate_grads_local",
+           "all_reduce_tree",
            "hetero_overlap_partials", "hetero_overlap_mean",
            "masked_mean_grads"]
 
@@ -83,6 +91,45 @@ def aggregate_grads_chunk(chunk_grads: PyTree, layer_ids: PyTree,
     c = layer_coefficients(chunk_mask, p, bias_correct=bias_correct,
                            counts=counts)
     return aggregate_with_coeffs(chunk_grads, layer_ids, c)
+
+
+def all_reduce_tree(tree: PyTree, group) -> PyTree:
+    """Sum a pytree over the ranks of ``group`` (None: one shard, returned
+    as it is). The leaves of each dtype are flattened into one buffer and
+    summed in that dtype by one ``all_reduce``, so a tree of one dtype (a
+    round's partial, or HeteroFL's (num, den)) costs one collective."""
+    if group is None:
+        return tree
+    leaves = tree_leaves(tree)
+    out: list = [None] * len(leaves)
+    for dtype in dict.fromkeys(t.dtype for t in leaves):
+        idx = [k for k, t in enumerate(leaves) if t.dtype == dtype]
+        flat = torch.cat([leaves[k].reshape(-1) for k in idx])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        parts = flat.split([leaves[k].numel() for k in idx])
+        for k, part in zip(idx, parts):
+            out[k] = part.view(leaves[k].shape)
+    return tree_unflatten(tree, out)
+
+
+def aggregate_grads_local(local_grads: PyTree, layer_ids: PyTree,
+                          local_mask: torch.Tensor, p: torch.Tensor, group,
+                          *, bias_correct: bool = True) -> PyTree:
+    """Explicit-collective variant: each rank of ``group`` holds a slice of
+    the client axis; the per-layer counts and the weighted sums are
+    combined with ``all_reduce`` (the reference's ``psum``), so every rank
+    returns :func:`aggregate_grads` of the concatenated cohort. With no
+    group (one shard) it is :func:`aggregate_grads_chunk` against the local
+    counts.
+
+    local_grads leaves: (U_local,) + param.shape; local_mask: (U_local, L).
+    """
+    counts = local_mask.sum(0)
+    if group is not None:
+        dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+    partial = aggregate_grads_chunk(local_grads, layer_ids, local_mask, p,
+                                    counts, bias_correct=bias_correct)
+    return all_reduce_tree(partial, group)
 
 
 def hetero_overlap_partials(deltas: PyTree, wmasks: PyTree,

@@ -13,6 +13,11 @@ client updates:
   per-layer contributor counts (:func:`repro_torch.core.aggregation.
   aggregate_grads_chunk`), so the partials sum to the dense fold without a
   full ``(cohort, ...)`` delta pytree.
+* :class:`ShardMapBackend`     — the cohort axis over the ranks of a
+  ``torch.distributed`` process group: each rank trains its own contiguous
+  rows of the cohort, folds them against the global counts, and one
+  ``all_reduce`` a round sums the partials (the reference's ``shard_map``
+  + ``psum``). Without a group it is one shard.
 * :class:`TemporalBackend`     — one client at a time: each client's delta,
   cast to f32, is folded with its Eq. 5 coefficient row into one f32
   accumulator, so peak memory is one delta pytree whatever the cohort size.
@@ -27,7 +32,8 @@ fold goes through the hand-written grouped kernels: one
 ``adel_agg_grouped`` launch per fold uncompressed and one
 ``adel_agg_q8_grouped`` launch per fold under int8 (a plain scatter-add a
 leaf for topk8), so a round launches one fold (dense), one a chunk
-(chunked), one a client (temporal) or one a region (hierarchical). Under
+(chunked), one a rank (shard_map), one a client (temporal) or one a region
+(hierarchical). Under
 compression the reduction consumes the wire payload: each slice of the
 cohort is compressed (:func:`repro_torch.core.compression.
 compress_deltas`) and folded into an f32 accumulator. HeteroFL rounds
@@ -53,8 +59,8 @@ spans measure the card's work; numerics are untouched either way.
 
 Backends are selected through :class:`repro_torch.fl.spec.ExecSpec`
 (``make_backend(exec=spec, model=model)``) or by legacy name; both resolve
-through :meth:`ExecSpec.resolve`. The reference's ``shard_map`` and
-``buffered`` backends wait for later slices (ROADMAP.md, items 1.8-1.9).
+through :meth:`ExecSpec.resolve`. The reference's ``buffered`` backend
+waits for a later slice (ROADMAP.md item 1.9).
 """
 from __future__ import annotations
 
@@ -63,8 +69,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.aggregation import (aggregate_grads,
                                           aggregate_grads_chunk,
+                                          all_reduce_tree,
                                           hetero_overlap_mean,
                                           hetero_overlap_partials)
 from repro_torch.core.compression import (aggregate_compressed,
@@ -73,12 +81,14 @@ from repro_torch.core.compression import (aggregate_compressed,
 from repro_torch.device import resolve_device, sync
 from repro_torch.fl.client import batched_client_deltas
 from repro_torch.fl.spec import AGG_IMPLS, BACKENDS, ExecSpec
+from repro_torch.launch.mesh import (MESH_AXES, batch_shards,
+                                     make_client_group, shard_index)
 from repro_torch.obs import NULL_TRACER
 from repro_torch.tree import tree_map
 
 __all__ = ["BACKENDS", "AGG_IMPLS", "ExecSpec", "ExecutionBackend",
-           "DenseBackend", "ChunkedBackend", "TemporalBackend",
-           "HierarchicalBackend", "make_backend"]
+           "DenseBackend", "ChunkedBackend", "ShardMapBackend",
+           "TemporalBackend", "HierarchicalBackend", "make_backend"]
 
 PyTree = Any
 
@@ -168,6 +178,36 @@ class ExecutionBackend:
         """Clear cross-round server-side state; the runtime calls this at
         the start of every run. Stateless backends are a no-op."""
 
+    def warm_up(self, params: PyTree, xb, yb, wb, mask, p, eta, *,
+                bias_correct: bool = True, wmasks: PyTree | None = None,
+                ctx=None) -> float:
+        """Run the real :meth:`run_round` once on a zero-filled copy of
+        ``params`` with the caller's round inputs and discard the result,
+        so the first measured round does not pay the one-off costs (loading
+        the CUDA libraries, cuDNN's and cuBLAS's handles and algorithm
+        choices, the kernels' first launch). Returns seconds spent.
+
+        The dummy round runs with the tracer muted (this backend's and any
+        backend it delegates to), draws no random number, and the backend's
+        state is left as it was found: :meth:`reset_state` erases what the
+        dummy round banked, then the attributes are restored (the
+        hierarchical backend's ``last_regions``; the byte-counter cache,
+        which a muted round does not fill). Every rank of a shard_map group
+        calls it, so the collectives still pair up."""
+        t0 = obs.now()
+        dummy = tree_map(torch.zeros_like, params)
+        tracer, found = self.tracer, dict(vars(self))
+        self.set_tracer(NULL_TRACER)
+        try:
+            self.run_round(dummy, xb, yb, wb, mask, p, eta,
+                           bias_correct=bias_correct, wmasks=wmasks, ctx=ctx)
+            sync(self.device)
+        finally:
+            self.reset_state()
+            vars(self).update(found)
+            self.set_tracer(tracer)
+        return obs.now() - t0
+
     def run_round(self, params: PyTree, xb, yb, wb, mask, p, eta, *,
                   bias_correct: bool, wmasks: PyTree | None = None,
                   ctx=None) -> PyTree:
@@ -220,19 +260,26 @@ class ExecutionBackend:
             agg = hetero_overlap_mean(*agg)
         return apply_update(params, agg)
 
+    def _combine(self, acc: PyTree) -> PyTree:
+        """The sum of the slices' partials across the processes that share
+        the round: nothing to add in one process (shard_map sums over its
+        group)."""
+        return acc
+
     def _run_slices(self, params, xb, yb, wb, mask, p, eta, slices, *,
-                    bias_correct, wmasks, label, dtype=None):
+                    bias_correct, wmasks, label, dtype=None, first=0):
         """One round as a loop over slices of the cohort: ``slices`` holds
         ``(index, clients)`` pairs (a slice or an index tensor into the
         cohort axis, and the clients it counts in the byte counters). Each
         slice's deltas (cast to ``dtype`` if given) give one partial
-        against the global counts; the partials are summed and applied in
-        one update."""
+        against the global counts; the partials are summed, combined across
+        processes (:meth:`_combine`) and applied in one update. ``first``
+        numbers the slices in the spans."""
         tracer = self.tracer
         hetero = wmasks is not None
         counts = mask.sum(0)                  # (L,) GLOBAL contributors
         acc = None
-        for j, (sl, n) in enumerate(slices):
+        for j, (sl, n) in enumerate(slices, first):
             with tracer.span("local_train", backend=self.name, **{label: j}):
                 deltas = self._deltas(params, xb[sl], yb[sl], wb[sl], eta)
                 if dtype is not None:
@@ -249,7 +296,7 @@ class ExecutionBackend:
                 self._fence()
         with tracer.span("aggregate", backend=self.name,
                          **{label + "s": len(slices)}):
-            out = self._finish(params, acc, hetero)
+            out = self._finish(params, self._combine(acc), hetero)
             self._fence()
         return out
 
@@ -320,6 +367,63 @@ class ChunkedBackend(ExecutionBackend):
 
     def describe(self):
         return {**super().describe(), "chunk_size": self.chunk_size}
+
+
+class ShardMapBackend(ExecutionBackend):
+    """The cohort axis as the ranks of a ``torch.distributed`` process
+    group: the port of the reference's ``shard_map`` + ``lax.psum``.
+
+    The cohort is padded to a multiple of the group's size; rank r trains
+    only its own contiguous rows ``[r U_pad/n, (r+1) U_pad/n)``. Every rank
+    plans and stacks the whole cohort from the same seed, so the ranks
+    agree on the mask, ``p`` and the batches without a broadcast, and the
+    global per-layer counts are the whole mask's. Each rank takes one
+    partial against them (one grouped fold launch a rank: uncompressed,
+    int8 from its clients' payload, or HeteroFL's (num, den)); the partials
+    are flattened into one buffer of their dtype and summed by one
+    ``all_reduce`` a round (:func:`repro_torch.core.aggregation.
+    all_reduce_tree`; f32 under int8, the grads' dtype otherwise); every
+    rank applies the same update in f32 and holds the same params.
+
+    ``mesh`` is the process group (None: the default group if one is
+    initialized). With none there is one shard holding the whole cohort,
+    the reference's one-device mesh, bit for bit the dense backend.
+    """
+
+    name = "shard_map"
+
+    def __init__(self, model, *, mesh=None, **kw):
+        super().__init__(model, **kw)
+        self.group = make_client_group() if mesh is None else mesh
+
+    @property
+    def n_shards(self) -> int:
+        return batch_shards(self.group)
+
+    def cohort_pad(self, U: int) -> int:
+        n = self.n_shards
+        return -(-int(U) // n) * n
+
+    def _combine(self, acc):
+        return all_reduce_tree(acc, self.group)
+
+    def run_round(self, params, xb, yb, wb, mask, p, eta, *,
+                  bias_correct, wmasks=None, ctx=None):
+        self._check_rule(wmasks)
+        xb, yb, wb, mask, p = self._inputs(xb, yb, wb, mask, p)
+        U, n, r = int(mask.shape[0]), self.n_shards, shard_index(self.group)
+        if U % n:
+            raise ValueError(f"cohort of {U} does not split over {n} shards "
+                             f"(pad it to cohort_pad({U}))")
+        per = U // n
+        return self._run_slices(params, xb, yb, wb, mask, p, eta,
+                                [(slice(r * per, (r + 1) * per), per)],
+                                bias_correct=bias_correct, wmasks=wmasks,
+                                label="shard", first=r)
+
+    def describe(self):
+        return {**super().describe(), "shards": self.n_shards,
+                "mesh_axes": list(MESH_AXES)}
 
 
 class TemporalBackend(ExecutionBackend):
@@ -464,6 +568,8 @@ def make_backend(backend=None, model=None, *, exec: ExecSpec | None = None,
         return DenseBackend(model, **kw)
     if spec.backend == "chunked":
         return ChunkedBackend(model, chunk_size=spec.chunk_size, **kw)
+    if spec.backend == "shard_map":
+        return ShardMapBackend(model, mesh=spec.mesh, **kw)
     if spec.backend == "temporal":
         return TemporalBackend(model, **kw)
     if spec.backend == "hierarchical":

@@ -1,5 +1,4 @@
-"""The federated round loop, in PyTorch (port of the serial path of
-``repro.fl.runtime``).
+"""The federated round loop, in PyTorch (port of ``repro.fl.runtime``).
 
 :class:`RoundRuntime` owns per-round policy planning, minibatch sampling,
 cohort padding to the backend's width (padded rows carry an all-zero mask,
@@ -8,8 +7,8 @@ derivation (cached per distinct width-ratio vector), the simulated
 wall-clock under Requirements R1 (at most R rounds) and R2 (total
 simulated time <= T_max), eval cadence and the :class:`History` record.
 HOW a round executes is an :class:`repro_torch.fl.backends.
-ExecutionBackend` (``dense`` / ``chunked`` / ``temporal`` /
-``hierarchical``), selected through one :class:`repro_torch.fl.spec.
+ExecutionBackend` (``dense`` / ``chunked`` / ``shard_map`` / ``temporal``
+/ ``hierarchical``), selected through one :class:`repro_torch.fl.spec.
 ExecSpec`.
 
 Every random draw of a run comes from one :class:`Draws` object: the
@@ -20,20 +19,50 @@ width so every backend sees the same minibatches. By default it is a
 be reproduced by a torch generator, so tests pass a draw source of their
 own that replays the reference's key sequence, plus ``init_params``.
 
+The round loop runs in one of two modes (``ExecSpec.pipeline``), with
+bit-identical trajectories:
+
+* ``"serial"`` (default): plan round t, execute round t, repeat.
+* ``"prefetch"``: a one-round lookahead. The sequential planner
+  (``cohort``, the policy's ``plan``, the ``T_max`` stop check, the
+  minibatch draws and the ``stack``) of round t+1 runs on one worker
+  thread while round t runs. It reads only host state and the planned
+  clock, never a result of round t, and once the initial params are drawn
+  the worker is the only consumer of the draws, so the speculation is
+  exact. On a CUDA device the worker issues its gathers on a side stream;
+  the main stream waits on an event recorded after them, and each stacked
+  tensor is marked as used by the main stream, so the caching allocator
+  does not hand its memory on while round t+1 still reads it. HeteroFL's
+  width masks read the live params and stay on the main thread. Before
+  round 0 the backend runs one round and one eval on zero params
+  (:meth:`repro_torch.fl.backends.ExecutionBackend.warm_up`), so the
+  first measured round does not pay one-off set-up.
+
+Eval never blocks the host in either mode: accuracy stays an int64
+correct-count on the device and the loss a device scalar, until a report
+boundary (an active tracer's eval record, an ``on_round`` hook, the end of
+the run) converts them; accuracy is then divided in Python's double, so
+``History`` holds the same floats as a blocking eval would.
+
 Observability flows through the single ``tracer=`` hook
 (:mod:`repro_torch.obs`, default :data:`repro_torch.obs.NULL_TRACER` —
 bit-identical trajectories): the runtime emits the ``cohort`` / ``plan`` /
 ``stack`` / ``eval`` spans (the backends add ``local_train`` /
-``aggregate``), the ``batch_elements_real`` / ``batch_elements_padded`` /
-``h2d_bytes`` counters and the ``cohort_size`` gauge, and one clock-model
-ledger event per executed round (:func:`repro_torch.obs.ledger.
-round_record`); the summary lands in ``History.telemetry``. On a CUDA
-device an active tracer synchronizes at the end of the backend's spans,
-of each round and of each eval, where the reference blocks on its
-results.
+``aggregate``; the planner's spans are timed where it runs and emitted on
+the main thread, as the tracer's sinks are not thread-safe), the
+``batch_elements_real`` / ``batch_elements_padded`` / ``h2d_bytes``
+counters and the ``cohort_size`` gauge, and one clock-model ledger event
+per executed round (:func:`repro_torch.obs.ledger.round_record`); under
+prefetch also the ``warm_up`` span and the ``prefetch_rounds``,
+``prefetch_overlap_s`` (worker planning time hidden behind the previous
+round's dispatch), ``dispatch_wait_s`` (main-thread stalls on the worker)
+and ``warm_up_s`` counters. The summary lands in ``History.telemetry``. On
+a CUDA device an active tracer synchronizes at the end of the backend's
+spans, of each round and of each eval.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -46,12 +75,13 @@ from repro_torch.device import resolve_device, sync
 from repro_torch.fl.backends import make_backend
 from repro_torch.fl.client import sample_client_batches
 from repro_torch.fl.spec import ExecSpec
+from repro_torch.tree import tree_map
 
 PyTree = Any
 
 __all__ = ["ModelAPI", "History", "Cohort", "StaticCohortSource",
            "RoundContext", "Draws", "RoundRuntime", "probe_s_max",
-           "evaluate", "eval_metrics"]
+           "DeviceRatio", "evaluate", "eval_metrics"]
 
 
 @dataclasses.dataclass
@@ -118,27 +148,43 @@ class Draws:
         return torch.randint(0, 2 ** 30, (U, s_max), generator=self.gen)
 
 
+class DeviceRatio:
+    """``count / n`` with ``count`` a 0-d integer tensor on the device:
+    ``float()`` reads the count (the one sync) and divides in Python's
+    double, so the value is that of a blocking ``float(count) / n``."""
+
+    __slots__ = ("count", "n")
+
+    def __init__(self, count: torch.Tensor, n: int):
+        self.count, self.n = count, int(n)
+
+    def __float__(self) -> float:
+        return float(self.count) / float(self.n)
+
+
 @torch.no_grad()
 def evaluate(model: ModelAPI, params: PyTree, x: torch.Tensor, y: torch.Tensor,
-             batch: int = 512) -> float:
-    """Full test-set accuracy."""
+             batch: int = 512) -> DeviceRatio:
+    """Full test-set accuracy, its correct-count kept on the device (no
+    host sync); ``float()`` the result for a Python number."""
     n = x.shape[0]
     correct = torch.zeros((), dtype=torch.int64, device=x.device)
     for i in range(0, n, batch):
         logits = model.predict(params, x[i:i + batch])
         correct += (logits.argmax(-1) == y[i:i + batch]).sum()
-    return float(correct) / float(n)
+    return DeviceRatio(correct, n)
 
 
 @torch.no_grad()
 def eval_metrics(model: ModelAPI, params: PyTree, test_x: torch.Tensor,
                  test_y: torch.Tensor, *, loss_samples: int = 256
-                 ) -> tuple[float, float]:
-    """(accuracy over the full test set, mean loss over a fixed head)."""
+                 ) -> tuple[DeviceRatio, torch.Tensor]:
+    """(accuracy over the full test set, mean loss over a fixed head), both
+    still on the device: ``float()`` each for a Python number."""
     acc = evaluate(model, params, test_x, test_y)
     n = min(loss_samples, int(test_y.shape[0]))
     w = torch.full((n,), 1.0 / n, dtype=torch.float32, device=test_x.device)
-    return acc, float(model.loss(params, test_x[:n], test_y[:n], w))
+    return acc, model.loss(params, test_x[:n], test_y[:n], w)
 
 
 def probe_s_max(policy: Policy, rounds: int) -> int:
@@ -227,13 +273,46 @@ def _round_context(t: int, elapsed: float, plan: RoundPlan, cfg,
                         lam=lam, layer_s=layer_s, B=B)
 
 
+@dataclasses.dataclass
+class _Prepared:
+    """One round from the sequential planner: what the dispatch needs, plus
+    the planner's span timings to emit on the main thread. ``kind`` is
+    ``"round"`` (executable) or ``"stop"`` (the T_max check failed); the
+    reference's ``"skip"`` kind (an empty cohort) and its replan record
+    come with re-planning and fleets (ROADMAP.md item 1.11). The stacked
+    tensors are one slot of the prefetch double buffer, dropped by
+    :meth:`release` once the round's work is queued; ``ready`` is the CUDA
+    event recorded after a worker's gathers on its side stream."""
+
+    kind: str
+    spans: list                        # [(phase, t0, dur_s, attrs)]
+    t_start: float = 0.0               # the planner's wall window, for the
+    t_end: float = 0.0                 # prefetch_overlap_s counter
+    plan: Any = None
+    xb: Any = None
+    yb: Any = None
+    wb: Any = None
+    mask: Any = None
+    U_act: int = 0
+    ctx: Any = None
+    h2d_bytes: int = 0
+    ready: Any = None
+
+    def stacked(self) -> tuple:
+        return self.xb, self.yb, self.wb, self.mask
+
+    def release(self) -> None:
+        self.xb = self.yb = self.wb = self.mask = None
+
+
 class RoundRuntime:
-    """The serial federated round loop, parameterized by execution backend.
+    """The federated round loop, parameterized by execution backend.
 
     HOW rounds execute is an :class:`repro_torch.fl.spec.ExecSpec`
     (``exec=``): backend selection, its knobs (``chunk_size``,
-    ``regions``), the local update's ``local_iters`` / ``l2``, and the
-    client->server wire format. The individual kwargs remain as aliases —
+    ``regions``, ``mesh``), the local update's ``local_iters`` / ``l2``,
+    the client->server wire format, and the round loop's ``pipeline``
+    (``serial`` or ``prefetch``). The individual kwargs remain as aliases —
     both forms funnel through :meth:`ExecSpec.resolve`, so trajectories are
     bit-identical either way. ``backend`` may also be an
     :class:`repro_torch.fl.backends.ExecutionBackend` instance (passed
@@ -260,6 +339,7 @@ class RoundRuntime:
                                     donate=donate, compression=compression,
                                     agg_impl=agg_impl, device=self.device)
         self.backend.set_tracer(self.tracer)
+        self.pipeline = exec.pipeline if exec is not None else "serial"
         self._wmask_cache: dict[bytes, PyTree] = {}
 
     # ------------------------------------------------------------------
@@ -306,12 +386,12 @@ class RoundRuntime:
         deadline would take the simulated clock past ``T_max``; returns
         ``(params, History)``. Accuracy and loss (:func:`eval_metrics` on
         ``test_x``/``test_y``) are recorded every ``eval_every`` rounds and
-        after the last.
+        after the last, as Python floats by the time ``run`` returns.
 
-        ``on_round(t, params, hist)`` runs after every executed round.
-        ``draws`` (default ``Draws(seed)``) supplies every random draw;
-        ``init_params`` (default ``model.init`` from the draws' generator)
-        the starting params.
+        ``on_round(t, params, hist)`` runs after every executed round, with
+        ``hist`` converted so far. ``draws`` (default ``Draws(seed)``)
+        supplies every random draw; ``init_params`` (default ``model.init``
+        from the draws' generator) the starting params.
         """
         model, policy, backend, dev = (self.model, self.policy, self.backend,
                                        self.device)
@@ -326,71 +406,201 @@ class RoundRuntime:
         U_pad = backend.cohort_pad(source.cohort_size)
         backend.reset_state()
         needs_ctx = bool(getattr(backend, "needs_ctx", False))
+        prefetch = self.pipeline == "prefetch"
 
         tracer = self.tracer
         hist = History(method=policy.name)
         elapsed = 0.0
         wall_start = obs.now()
-        for t in range(rounds):
-            tracer.set_round(t + 1)
-            wall_round0 = obs.now() if tracer.active else 0.0
-            with tracer.span("cohort"):
-                cohort = source.round_cohort(t)
-            with tracer.span("plan"):
-                plan = policy.round(draws, t)
-            if elapsed + plan.elapsed > T_max * (1 + 1e-6):
-                break
-            with tracer.span("stack"):
-                xb, yb, wb, mask, U_act = self._prepare(
-                    cohort, plan, draws.batch_indices(t, cohort.size, s_max),
-                    s_max, U_pad)
-            wmasks = None
-            if plan.width_ratios is not None:
-                t0 = obs.now()
-                wmasks = self._width_masks(params, plan.width_ratios, U_pad)
-                tracer.span_record("stack", t0, obs.now() - t0,
-                                   part="wmasks")
-            ctx = (_round_context(t, elapsed, plan, policy.cfg, U_act)
+
+        # -- the sequential planner ---------------------------------------
+        # It reads host state only (the cohort source, the policy, the
+        # draws, the PLANNED clock: plan.elapsed is known before the round
+        # runs), never a result of a round, so prefetch can run it one
+        # round ahead and the trajectory stays bit-identical. Its clock
+        # mirrors `elapsed`: every planned round is executed and a "stop"
+        # halts both. The skip and replan arms come with ROADMAP.md 1.11.
+        planned_elapsed = 0.0
+
+        def plan_round(t: int) -> _Prepared:
+            nonlocal planned_elapsed
+            spans: list = []
+            t_start = t0 = obs.now()
+            cohort = source.round_cohort(t)
+            spans.append(("cohort", t0, obs.now() - t0, {}))
+            t0 = obs.now()
+            plan = policy.round(draws, t)
+            spans.append(("plan", t0, obs.now() - t0, {}))
+            if planned_elapsed + plan.elapsed > T_max * (1 + 1e-6):
+                return _Prepared(kind="stop", spans=spans,
+                                 t_start=t_start, t_end=obs.now())
+            t0 = obs.now()
+            xb, yb, wb, mask, U_act = self._prepare(
+                cohort, plan, draws.batch_indices(t, cohort.size, s_max),
+                s_max, U_pad)
+            spans.append(("stack", t0, obs.now() - t0, {}))
+            ctx = (_round_context(t, planned_elapsed, plan, policy.cfg, U_act)
                    if needs_ctx else None)
-            params = backend.run_round(params, xb, yb, wb, mask, plan.p,
-                                       float(eta[t]),
-                                       bias_correct=bool(plan.bias_correct),
-                                       wmasks=wmasks, ctx=ctx)
-            elapsed += plan.elapsed
-            if tracer.active:
-                # the clock-model ledger row: planned deadline vs simulated
-                # clock vs measured wall vs the model's view
-                tracer.count("h2d_bytes", obs.tree_bytes((xb, yb, wb, mask)))
-                sync(dev)
-                wall_now = obs.now()
-                tracer.count(
-                    "batch_elements_real",
-                    int(np.minimum(np.asarray(plan.batch_sizes,
-                                              np.float64)[:U_act],
-                                   float(s_max)).sum()))
-                tracer.count("batch_elements_padded", U_pad * s_max)
-                tracer.gauge("cohort_size", U_act)
-                tracer.event("round", **obs.round_record(
-                    t=t, plan=plan, cfg=policy.cfg, L=model.L, U_act=U_act,
-                    U_pad=U_pad, s_max=s_max, sim_total=elapsed,
-                    wall_round_s=wall_now - wall_round0,
-                    wall_total_s=wall_now - wall_start,
-                    regions=getattr(backend, "last_regions", None) or None))
-            if (t % eval_every == 0) or (t == rounds - 1):
-                with tracer.span("eval"):
-                    acc, loss = eval_metrics(model, params, tx, ty)
-                hist.times.append(elapsed)
-                hist.rounds.append(t + 1)
-                hist.accuracy.append(acc)
-                hist.deadlines.append(float(plan.elapsed))
-                hist.train_loss.append(loss)
+            planned_elapsed += plan.elapsed
+            return _Prepared(kind="round", spans=spans, t_start=t_start,
+                             t_end=obs.now(), plan=plan, xb=xb, yb=yb, wb=wb,
+                             mask=mask, U_act=U_act, ctx=ctx,
+                             h2d_bytes=obs.tree_bytes((xb, yb, wb, mask)))
+
+        side = (torch.cuda.Stream(device=dev)
+                if prefetch and dev.type == "cuda" else None)
+
+        def plan_ahead(t: int) -> _Prepared:
+            """The worker's call: on a CUDA device the planner's gathers go
+            on the side stream, with an event recorded after them."""
+            if side is None:
+                return plan_round(t)
+            with torch.cuda.stream(side):
+                prep = plan_round(t)
+                prep.ready = torch.cuda.Event()
+                prep.ready.record(side)
+            return prep
+
+        def hand_over(prep: _Prepared) -> None:
+            """Order the main stream after the worker's gathers, and mark
+            their tensors as used by it: the caching allocator then keeps
+            their memory until the main stream's work on them is done."""
+            if prep.ready is None:
+                return
+            main = torch.cuda.current_stream(dev)
+            main.wait_event(prep.ready)
+            for a in prep.stacked():
+                a.record_stream(main)
+
+        pool = (concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="prefetch")
+                if prefetch else None)
+        pending: Optional[concurrent.futures.Future] = None
+        pending_evals: list[int] = []    # History rows awaiting float()
+        warmed = False
+        dispatch_t0: Optional[float] = None
+
+        def drain_evals() -> None:
+            """Convert the deferred eval device scalars in History (the
+            conversion is the sync point)."""
+            for i in pending_evals:
+                hist.accuracy[i] = float(hist.accuracy[i])
+                hist.train_loss[i] = float(hist.train_loss[i])
+            pending_evals.clear()
+
+        try:
+            for t in range(rounds):
+                tracer.set_round(t + 1)
+                wall_round0 = obs.now() if tracer.active else 0.0
+                if pending is not None:
+                    t0 = obs.now()
+                    prep: _Prepared = pending.result()
+                    pending = None
+                    if tracer.active:
+                        t_res = obs.now()
+                        tracer.count("dispatch_wait_s", round(t_res - t0, 6))
+                        tracer.count("prefetch_rounds", 1)
+                        if dispatch_t0 is not None:
+                            # worker wall time hidden behind the previous
+                            # round's dispatch window
+                            lo = max(prep.t_start, dispatch_t0)
+                            hi = min(prep.t_end, t_res)
+                            if hi > lo:
+                                tracer.count("prefetch_overlap_s",
+                                             round(hi - lo, 6))
+                else:
+                    prep = plan_round(t)
+                for name, s0, dur, attrs in prep.spans:
+                    tracer.span_record(name, s0, dur, **attrs)
+                if prep.kind == "stop":
+                    break
+                hand_over(prep)
+                plan, U_act = prep.plan, prep.U_act
+                wmasks = None
+                if plan.width_ratios is not None:
+                    # HeteroFL masks read the LIVE params: the one input
+                    # the planner cannot speculate on
+                    t0 = obs.now()
+                    wmasks = self._width_masks(params, plan.width_ratios,
+                                               U_pad)
+                    tracer.span_record("stack", t0, obs.now() - t0,
+                                       part="wmasks")
+                if prefetch and t + 1 < rounds:
+                    # plan round t+1 while round t runs
+                    pending = pool.submit(plan_ahead, t + 1)
+                if prefetch and not warmed:
+                    # one round and one eval on zero params before round 0
+                    # dispatches, so its one-off costs stay out of it
+                    t0 = obs.now()
+                    backend.warm_up(params, *prep.stacked(), plan.p,
+                                    float(eta[t]),
+                                    bias_correct=bool(plan.bias_correct),
+                                    wmasks=wmasks, ctx=prep.ctx)
+                    eval_metrics(model, tree_map(torch.zeros_like, params),
+                                 tx, ty)
+                    sync(dev)
+                    dur = obs.now() - t0
+                    tracer.span_record("warm_up", t0, dur)
+                    tracer.count("warm_up_s", round(dur, 6))
+                    warmed = True
+                dispatch_t0 = obs.now()
+                params = backend.run_round(params, *prep.stacked(), plan.p,
+                                           float(eta[t]),
+                                           bias_correct=bool(
+                                               plan.bias_correct),
+                                           wmasks=wmasks, ctx=prep.ctx)
+                tracer.count("h2d_bytes", prep.h2d_bytes)
+                prep.release()       # free this round's double-buffer slot
+                elapsed += plan.elapsed
                 if tracer.active:
-                    tracer.event("eval", round=t + 1, available=None,
-                                 cohort=U_act, sim_total=elapsed,
-                                 T_deadline=float(plan.elapsed), acc=acc,
-                                 loss=loss)
-            if on_round is not None:
-                on_round(t, params, hist)
+                    # the clock-model ledger row: planned deadline vs
+                    # simulated clock vs measured wall vs the model's view
+                    sync(dev)
+                    wall_now = obs.now()
+                    tracer.count(
+                        "batch_elements_real",
+                        int(np.minimum(np.asarray(plan.batch_sizes,
+                                                  np.float64)[:U_act],
+                                       float(s_max)).sum()))
+                    tracer.count("batch_elements_padded", U_pad * s_max)
+                    tracer.gauge("cohort_size", U_act)
+                    tracer.event("round", **obs.round_record(
+                        t=t, plan=plan, cfg=policy.cfg, L=model.L,
+                        U_act=U_act, U_pad=U_pad, s_max=s_max,
+                        sim_total=elapsed,
+                        wall_round_s=wall_now - wall_round0,
+                        wall_total_s=wall_now - wall_start,
+                        regions=getattr(backend, "last_regions",
+                                        None) or None))
+                if (t % eval_every == 0) or (t == rounds - 1):
+                    with tracer.span("eval"):
+                        acc, loss = eval_metrics(model, params, tx, ty)
+                        if tracer.active:
+                            sync(dev)
+                    hist.times.append(elapsed)
+                    hist.rounds.append(t + 1)
+                    hist.accuracy.append(acc)
+                    hist.deadlines.append(float(plan.elapsed))
+                    hist.train_loss.append(loss)
+                    pending_evals.append(len(hist.accuracy) - 1)
+                    if tracer.active:
+                        # the record is rendered from what History keeps:
+                        # only this report boundary pays the conversion
+                        drain_evals()
+                        tracer.event("eval", round=t + 1, available=None,
+                                     cohort=U_act, sim_total=elapsed,
+                                     T_deadline=float(plan.elapsed),
+                                     acc=hist.accuracy[-1],
+                                     loss=hist.train_loss[-1])
+                if on_round is not None:
+                    drain_evals()    # hooks read converted History
+                    on_round(t, params, hist)
+        finally:
+            if pool is not None:
+                if pending is not None:
+                    pending.cancel()
+                pool.shutdown(wait=True)
+        drain_evals()
         tracer.set_round(None)
         if tracer.active:
             hist.telemetry = tracer.summary()

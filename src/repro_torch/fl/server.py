@@ -6,8 +6,9 @@ a :class:`repro_torch.fl.runtime.StaticCohortSource` and hands the loop to
 :class:`repro_torch.fl.runtime.RoundRuntime`. HOW each round executes is
 an :class:`repro_torch.fl.spec.ExecSpec` (``exec=``) selecting one of the
 :mod:`repro_torch.fl.backends` backends — ``dense`` (the default),
-``chunked``, ``temporal`` or ``hierarchical`` — numerically equivalent up
-to float summation order.
+``chunked``, ``shard_map``, ``temporal`` or ``hierarchical`` — numerically
+equivalent up to float summation order, under the ``serial`` or
+``prefetch`` round loop (bit-identical).
 """
 from __future__ import annotations
 

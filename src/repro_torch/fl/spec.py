@@ -16,10 +16,11 @@ that is:
   combinations the selected backend ignores — or raises, under
   ``strict=True`` / ``REPRO_EXEC_STRICT=1``.
 
-The port's backends are ``dense``, ``chunked``, ``temporal`` and
-``hierarchical``. The reference's ``shard_map`` and ``buffered`` backends
-and its ``pipeline="prefetch"`` round loop raise ``NotImplementedError``
-(ROADMAP.md items 1.8, 1.9 and 1.12). Both ``agg_impl`` values are kept so
+The port's backends are ``dense``, ``chunked``, ``shard_map`` (over a
+``torch.distributed`` process group), ``temporal`` and ``hierarchical``,
+and ``pipeline`` is ``serial`` or ``prefetch``. The reference's
+``buffered`` backend raises ``NotImplementedError`` (ROADMAP.md item
+1.9). Both ``agg_impl`` values are kept so
 a spec round-trips through :meth:`as_dict` and the CLI; in the port both
 route every fold through the hand-written grouped kernels on the card (and
 their plain versions on the CPU).
@@ -33,19 +34,18 @@ from typing import Any, Optional
 
 from repro_torch.core.compression import (MODES as COMPRESSION_MODES,
                                           CompressionConfig, make_compression)
+from repro_torch.launch.mesh import MESH_AXES
 
 __all__ = ["BACKENDS", "AGG_IMPLS", "PIPELINES", "ExecSpec"]
 
 # dense: one vmap over the cohort; chunked: sequential chunk sums;
-# temporal: one client at a time into an f32 accumulator; hierarchical:
-# per-edge-region partial aggregates + one global fold
-BACKENDS = ("dense", "chunked", "temporal", "hierarchical")
+# shard_map: each rank of a process group folds its slice, all_reduce sums
+# the partials; temporal: one client at a time into an f32 accumulator;
+# hierarchical: per-edge-region partial aggregates + one global fold
+BACKENDS = ("dense", "chunked", "shard_map", "temporal", "hierarchical")
 
-# the reference's backends and round loop that wait for later slices
-_LATER = {"shard_map": "ROADMAP.md item 1.8: ShardMapBackend on "
-                       "torch.distributed",
-          "buffered": "ROADMAP.md item 1.9: the buffered semi-async backend",
-          "prefetch": "ROADMAP.md item 1.12: the pipelined round loop"}
+# the reference's backend that waits for a later slice
+_LATER = {"buffered": "ROADMAP.md item 1.9: the buffered semi-async backend"}
 
 AGG_IMPLS = ("jnp", "pallas")
 
@@ -70,8 +70,12 @@ class ExecSpec:
     never update params in place); ``compression`` is the client->server
     wire format (normalized to a :class:`CompressionConfig`); ``agg_impl``
     names the reference's fold implementation, reported by ``describe()``.
-    ``mesh`` and the staleness knobs ``lam`` / ``max_age`` / ``buffer_cap``
-    belong to backends the port has not taken over yet.
+    ``mesh`` is the shard_map backend's ``torch.distributed`` process group
+    (None: the default group if one is initialized, else one shard).
+    ``pipeline`` is the round loop: ``serial``, or ``prefetch``, which plans
+    round t+1 on a worker thread while round t runs. The staleness knobs
+    ``lam`` / ``max_age`` / ``buffer_cap`` belong to the buffered backend,
+    not ported yet.
     """
 
     backend: str = "dense"
@@ -114,9 +118,6 @@ class ExecSpec:
         if self.pipeline not in PIPELINES:
             raise ValueError(f"unknown pipeline {self.pipeline!r}; "
                              f"known: {PIPELINES}")
-        if self.pipeline == "prefetch":
-            raise NotImplementedError(
-                f"pipeline='prefetch' is not ported yet ({_LATER['prefetch']})")
 
     # ------------------------------------------------------------------
     @classmethod
@@ -157,7 +158,7 @@ class ExecSpec:
                 self.backend != "chunked":
             issues.append(f"chunk_size={self.chunk_size} is ignored by "
                           f"backend={self.backend!r} (chunked only)")
-        if self.mesh is not None:
+        if self.mesh is not None and self.backend != "shard_map":
             issues.append(f"mesh= is ignored by backend={self.backend!r} "
                           f"(shard_map only)")
         if (self.lam != defaults.lam or self.max_age != defaults.max_age
@@ -184,11 +185,12 @@ class ExecSpec:
                     agg_impl=self.agg_impl)
 
     def as_dict(self) -> dict:
-        """JSON-friendly description (mesh elided to its axis names)."""
+        """JSON-friendly description (a process group elided to the mesh
+        axis names it stands for)."""
         d = {f: getattr(self, f) for f in _FIELDS}
         d["compression"] = dataclasses.asdict(self.compression)
         if self.mesh is not None:
-            d["mesh"] = list(getattr(self.mesh, "axis_names", ("?",)))
+            d["mesh"] = list(MESH_AXES)
         return d
 
     # ------------------------------------------------------------------
@@ -230,8 +232,8 @@ class ExecSpec:
                        help="buffered backend: carry ring-buffer slots (not "
                             "ported yet)")
         g.add_argument("--pipeline", default=None, choices=list(PIPELINES),
-                       help="round-loop pipelining (prefetch is not "
-                            "ported yet)")
+                       help="round-loop pipelining: prefetch plans round "
+                            "t+1 on a worker thread while round t runs")
 
     @classmethod
     def from_cli(cls, args, *, base: Optional["ExecSpec"] = None,

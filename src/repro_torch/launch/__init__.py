@@ -1,1 +1,2 @@
-"""Entry points for the LM path: step functions and the serving loop."""
+"""Launch-side helpers: the LM path's step functions and serving loop,
+and the client process group of the shard_map backend (``mesh``)."""

@@ -25,7 +25,7 @@ Prefetch-pipelined runs (``ExecSpec.pipeline="prefetch"``) add a fifth
 section from the round loop's pipeline counters: per-round H2D bytes of
 the stacked batches (``h2d_bytes``), worker planning time hidden behind
 the device step (``prefetch_overlap_s``), main-thread stalls on the
-prefetch future (``dispatch_wait_s``), and the one-off AOT warm-up cost
+prefetch future (``dispatch_wait_s``), and the one-off warm-up cost
 (``warm_up_s``).
 """
 from __future__ import annotations
@@ -80,10 +80,10 @@ def _fmt_bytes(b: float) -> str:
 
 BYTE_COUNTERS = ("aggregate_bytes_logical", "aggregate_bytes_wire")
 
-# the round loop's counters: stacked-batch H2D bytes (every run), and
-# the reference's prefetch loop's worker planning time hidden behind the
-# device step, main-thread stalls on the prefetch future and one-off AOT
-# warm-up cost (the port has no prefetch loop yet)
+# the round loop's counters: stacked-batch H2D bytes (every run), and under
+# the prefetch loop the worker's planning time hidden behind the previous
+# round's dispatch, main-thread stalls on the prefetch future and the
+# one-off warm-up cost
 PIPELINE_COUNTERS = ("h2d_bytes", "prefetch_overlap_s", "dispatch_wait_s",
                      "warm_up_s")
 

@@ -1,6 +1,8 @@
 """The port's execution backends (``repro_torch.fl.backends``) and
 ``ExecSpec``: the ports of ``tests/test_backends.py``'s cases that do not
-touch ``shard_map`` or ``buffered``, run on the port's own draws, plus one
+touch ``buffered`` (``shard_map`` runs here as one shard; its multi-rank
+cases are in ``tests/test_torch_shard_map.py``), run on the port's own
+draws, plus one
 round of each backend against the REFERENCE's same backend on the same
 inputs, and the byte counters' totals against the reference's.
 
@@ -37,7 +39,8 @@ from repro_torch.core.types import AnalysisConfig
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.fl.backends import (BACKENDS, ChunkedBackend, DenseBackend,
                                      ExecSpec, HierarchicalBackend,
-                                     TemporalBackend, make_backend)
+                                     ShardMapBackend, TemporalBackend,
+                                     make_backend)
 from repro_torch.fl.partition import dirichlet_partition, stack_clients
 from repro_torch.fl.server import run_federated
 from repro_torch.models import paper_models as ppm
@@ -146,7 +149,10 @@ def test_backend_registry_and_padding():
     assert make_backend("temporal", model, device="cpu").cohort_pad(10) == 10
     assert make_backend("hierarchical", model,
                         device="cpu").cohort_pad(10) == 10
+    # no process group: one shard, the reference's one-device mesh
+    assert make_backend("shard_map", model, device="cpu").cohort_pad(10) == 10
     for name, cls in [("dense", DenseBackend), ("chunked", ChunkedBackend),
+                      ("shard_map", ShardMapBackend),
                       ("temporal", TemporalBackend),
                       ("hierarchical", HierarchicalBackend)]:
         assert isinstance(make_backend(name, model, device="cpu"), cls)
@@ -154,11 +160,14 @@ def test_backend_registry_and_padding():
     assert make_backend(bk, model) is bk
     with pytest.raises(ValueError):
         make_backend("nope", model, device="cpu")
-    for name, item in (("shard_map", "1.8"), ("buffered", "1.9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-            make_backend(name, model, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.12"):
-        ExecSpec(pipeline="prefetch")
+    # the buffered backend still waits for its slice; shard_map and the
+    # prefetch pipeline build
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.9"):
+        make_backend("buffered", model, device="cpu")
+    assert ExecSpec(pipeline="prefetch").pipeline == "prefetch"
+    assert make_backend(exec=ExecSpec(backend="shard_map",
+                                      pipeline="prefetch"),
+                        model=model, device="cpu").describe()["shards"] == 1
 
 
 def test_padded_rows_contribute_nothing(setup):
@@ -234,7 +243,10 @@ def ref_setup(setup):
             ref_sched)
 
 
-@pytest.mark.parametrize("backend", list(BACKENDS))
+# the reference's shard_map backend does not run under jax 0.9 (ROADMAP.md
+# §3); the port's shard_map counters are held to dense's summed over ranks
+# in tests/test_torch_shard_map.py
+@pytest.mark.parametrize("backend", [b for b in BACKENDS if b != "shard_map"])
 def test_compressed_byte_counters_match_reference(setup, ref_setup, backend):
     """Every port backend records the split logical/wire counters, with
     totals equal to the reference's same backend in the same run (chunked
@@ -397,8 +409,11 @@ def test_execspec_cli_roundtrip():
         ExecSpec(backend="chunked", chunk_size=4)
     with pytest.raises(SystemExit):        # not a port backend yet
         ap.parse_args(["--backend", "buffered"])
-    with pytest.raises(NotImplementedError, match="1.12"):
-        ExecSpec.from_cli(ap.parse_args(["--pipeline", "prefetch"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.9"):
+        ExecSpec.resolve(backend="buffered")
+    assert ExecSpec.from_cli(ap.parse_args(
+        ["--backend", "shard_map", "--pipeline", "prefetch"])) == \
+        ExecSpec(backend="shard_map", pipeline="prefetch")
 
 
 def test_make_backend_accepts_spec_and_legacy():

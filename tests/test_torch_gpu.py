@@ -391,6 +391,101 @@ def test_backend_round_on_card_matches_cpu(cuda, backend, knobs, launches,
         assert _close(a, b, 1e-4, 1e-5 + 1.0001 * step), (a - b).abs().max()
 
 
+def _cnn_round_inputs():
+    from repro_torch.models.paper_models import make_cnn
+    from repro_torch.tree import tree_map
+    model = make_cnn()
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda p: p + 0.05 * torch.randn(p.shape, generator=gen),
+                      model.init(gen, "cpu"))
+    rng = np.random.default_rng(0)
+    U, S = 4, 6
+    xb = torch.from_numpy(rng.standard_normal((U, S, 28, 28, 1)).astype(
+        np.float32))
+    yb = torch.from_numpy(rng.integers(0, 10, (U, S)))
+    wb = torch.full((U, S), 1.0 / S)
+    mask = torch.from_numpy((rng.uniform(size=(U, model.L)) > 0.3).astype(
+        np.float32))
+    mask[0] = 1.0
+    return model, params, (xb, yb, wb, mask, torch.full((model.L,), 0.1))
+
+
+@pytest.mark.parametrize("comp", [None, "int8"])
+def test_one_nccl_rank_matches_dense_on_card(cuda, tmp_path, comp):
+    """shard_map over a one-rank NCCL group on the card: one grouped fold
+    launch and one all_reduce a round, and the round within 1e-4 of the
+    dense round's max |update| from the same params and batches (cuDNN
+    deterministic: the one all_reduce of one rank is a copy, so the two
+    are expected equal)."""
+    import torch.distributed as dist
+
+    from repro_torch.fl.backends import ShardMapBackend, make_backend
+    from repro_torch.kernels.adel_agg import (adel_agg_grouped,
+                                              adel_agg_q8_grouped)
+    from repro_torch.tree import tree_leaves, tree_map
+    model, params, arrays = _cnn_round_inputs()
+    params = tree_map(lambda a: a.to(cuda), params)
+    arrays = [a.to(cuda) for a in arrays]
+    kernel = adel_agg_grouped if comp is None else adel_agg_q8_grouped
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        outs = {}
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+            for name in ("dense", "shard_map"):
+                bk = make_backend(name, model, compression=comp, device=cuda)
+                before = kernel.launches
+                outs[name] = bk.run_round(params, *arrays, 0.5,
+                                          bias_correct=True)
+                torch.cuda.synchronize()
+                assert kernel.launches == before + 1
+        assert isinstance(bk, ShardMapBackend)
+        assert bk.describe()["shards"] == 1
+    finally:
+        dist.destroy_process_group()
+    upd = max(float((d - w).abs().max()) for d, w in
+              zip(tree_leaves(outs["dense"]), tree_leaves(params)))
+    diff = max(float((a - d).abs().max()) for a, d in
+               zip(tree_leaves(outs["shard_map"]), tree_leaves(outs["dense"])))
+    assert upd > 0 and diff <= 1e-4 * upd, (diff, upd)
+
+
+@pytest.mark.parametrize("backend", ["dense", "shard_map", "chunked"])
+def test_prefetch_matches_serial_on_card(cuda, backend):
+    """The prefetch driver on the card (its gathers on a side stream)
+    against serial: History equal and params bit-equal under
+    cudnn.deterministic."""
+    from repro_torch.core.baselines import make_policy
+    from repro_torch.core.scheduler import solve
+    from repro_torch.core.types import AnalysisConfig
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.fl.partition import dirichlet_partition, stack_clients
+    from repro_torch.fl.server import run_federated
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.models.paper_models import make_cnn
+    from repro_torch.tree import tree_leaves
+    x_tr, y_tr, x_te, y_te = make_image_dataset(
+        "mnist", n_train=400, n_test=200, seed=0, noise_std=1.0)
+    parts = dirichlet_partition(y_tr, 6, alpha=0.5, seed=0)
+    data = (*stack_clients(x_tr, y_tr, parts), x_te, y_te)
+    model = make_cnn()
+    cfg = AnalysisConfig.default(U=6, L=model.L, R=4,
+                                 T_max=4 * model.L * 0.5, eta0=0.5, seed=0)
+    schedule = solve(cfg, "adam", steps=100, device="cpu")
+    knobs = {"chunk_size": 4} if backend == "chunked" else {}
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        for pipe in ("serial", "prefetch"):
+            policy = make_policy("adel", cfg, schedule=schedule, device=cuda)
+            out[pipe] = run_federated(
+                model, policy, cfg, *data, seed=0, device=cuda,
+                exec=ExecSpec(backend=backend, pipeline=pipe, **knobs))
+    (ps, hs), (pp, hp) = out["serial"], out["prefetch"]
+    assert hs.as_dict() == hp.as_dict()
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ps),
+                                                 tree_leaves(pp)))
+
+
 # ---------------------------------------------------------------------------
 # the LM kernels: flash attention and the SSD chunk scan
 # ---------------------------------------------------------------------------

@@ -64,8 +64,25 @@
    rank, 5 rounds evaluating every round: History equal and params
    bit-equal under ``cudnn.deterministic``, wall a steady round in turns,
    the device-idle share, and the pipeline counters of a traced run.
-8. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
-9. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
+8. The buffered backend on the VGG-11 cell (``lam=0.5``, ``max_age=4``,
+   ``buffer_cap=4``, 5 rounds), uncompressed and int8: ``lam=0``
+   bit-identical to dense; with ``lam>0`` one grouped fold launch a round
+   plus one a carry slot folded that round (wrappers a round, and
+   ``torch.profiler``), no other fold launch; each carried slot's fold
+   against the plain fold of its banked payload; a round's carry counts,
+   wall and peak memory; and prefetch against serial on it (bit-identical).
+   Then ``run_fleet`` at full VGG-11 width on a parametric
+   ``longtail-mobile`` population of 10,000 and of 1,000,000 devices
+   (Bernoulli 0.7, cohort 16, hierarchical over 4 edge regions from the
+   device ids, 3 rounds): one grouped fold launch a non-empty region a
+   round, finite losses, the ``cohort`` span's host ms at both sizes. Then
+   three registry scenarios at their published size and rounds
+   (``longtail-mobile-buffered``, ``longtail-mobile-diurnal-replan``,
+   ``longtail-mobile-diurnal-int8``): rounds run and skipped, replan
+   events, carried totals, final accuracy, the replan run's deadlines
+   within ``T_max``.
+9. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
+10. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
    (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
    each LM kernel per prefill (an ``ssd_scan`` launch is one three-phase
    scan, four kernels) and finite (2, 32256) logits, then profiled (flash
@@ -73,7 +90,7 @@
    ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
    prefill (kernels) against stepping the decode path (plain) over 1152
    tokens, past the 1024 window, at full width cut to 4 blocks in f32.
-10. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+11. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
     line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -476,7 +493,8 @@ def vgg_setup(torch, schedule=None) -> dict:
               f"S_max={int(schedule.batch_sizes(cfg).max())}", flush=True)
     policy = make_policy("adel", cfg, schedule=schedule, device="cuda")
     return {"model": model, "cfg": cfg, "policy": policy,
-            "data": (cx, cy, counts, x_te, y_te)}
+            "data": (cx, cy, counts, x_te, y_te),
+            "raw": (x_tr, y_tr, x_te, y_te)}
 
 
 def fold_counters() -> dict:
@@ -633,10 +651,11 @@ def fold_slices(torch, leaf_F: dict) -> None:
 
 
 def run_rounds(torch, vgg: dict, rounds: int, *, exec=None, policy=None,
-               tracer=None, on_round=None, eval_every=None):
+               tracer=None, on_round=None, eval_every=None, backend=None):
     """``rounds`` rounds of the VGG-11 cell through the round runtime (the
     loop ``run_federated`` drives), evaluating after the first and the
-    last (or every ``eval_every`` rounds)."""
+    last (or every ``eval_every`` rounds); ``backend`` passes a backend
+    instance the caller keeps."""
     from repro_torch.fl.runtime import (RoundRuntime, StaticCohortSource,
                                         probe_s_max)
     cfg = vgg["cfg"]
@@ -644,7 +663,7 @@ def run_rounds(torch, vgg: dict, rounds: int, *, exec=None, policy=None,
     cx, cy, counts, x_te, y_te = vgg["data"]
     s_max = max(min(probe_s_max(policy, cfg.R), int(cy.shape[1])), 2)
     runtime = RoundRuntime(vgg["model"], policy, exec=exec, tracer=tracer,
-                           device="cuda")
+                           backend=backend, device="cuda")
     source = StaticCohortSource(cx, cy, counts, device="cuda")
     return runtime.run(source, rounds=rounds, T_max=cfg.T_max, eta=cfg.eta,
                        s_max=s_max, test_x=x_te, test_y=y_te, seed=0,
@@ -1183,6 +1202,355 @@ def vgg_pipeline(torch, vgg: dict) -> None:
                 check(counters.get("prefetch_rounds") == R - 1
                       and counters.get("warm_up_s", 0) > 0,
                       f"{tag} prefetch counters missing: {counters}")
+    # the buffered backend's carry ring under prefetch: the worker plans
+    # ahead while the main thread banks and folds
+    tag = "[vgg11 pipeline] buffered  none"
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pair = [run_rounds(torch, vgg, R, eval_every=1, exec=ExecSpec(
+            backend="buffered", pipeline=m, **BUFFERED))
+            for m in ("serial", "prefetch")]
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    identical = same(*pair)
+    print(f"{tag} prefetch_vs_serial_bit_identical(cudnn.deterministic)="
+          f"{identical} rounds={pair[1][1].rounds} acc={pair[1][1].accuracy}"
+          f" loss={pair[1][1].train_loss}", flush=True)
+    check(identical, f"{tag} prefetch is not bit-identical to serial")
+
+
+# ---------------------------------------------------------------------------
+# the buffered semi-async backend, the fleet engine and the fleet scenarios
+# ---------------------------------------------------------------------------
+
+BUFFERED = {"lam": 0.5, "max_age": 4, "buffer_cap": 4}
+FLEET_SIZES = (10_000, 1_000_000)
+FLEET_ROUNDS = 3
+FLEET_COHORT = 16
+FLEET_REGIONS = 4
+FLEET_SHARDS = 1024
+SCENARIO_RUNS = ("longtail-mobile-buffered", "longtail-mobile-diurnal-replan",
+                 "longtail-mobile-diurnal-int8")
+
+
+def slot_fold_error(torch, slot: dict, w, ids: list, comp) -> tuple:
+    """One carried slot's fold through its kernel and through the plain
+    version, on the same banked CUDA payload and coefficients
+    ``c_late * w``: (max |kernel - plain|, max |plain|)."""
+    from repro_torch.kernels.adel_agg import (adel_agg_grouped,
+                                              adel_agg_grouped_plain,
+                                              adel_agg_q8_grouped,
+                                              adel_agg_q8_grouped_plain)
+    from repro_torch.kernels.ops import leaf_dims
+    from repro_torch.tree import tree_leaves
+    coeffs = (slot["c_late"] * torch.from_numpy(w)[:, None]).cuda()
+    if comp is None:
+        flat = [g.reshape(g.shape[0], *leaf_dims(g.shape[1:], i))
+                for g, i in zip(tree_leaves(slot["banked"]), ids)]
+        pairs = zip(adel_agg_grouped(flat, ids, coeffs),
+                    adel_agg_grouped_plain(flat, ids, coeffs))
+    else:
+        qs = [q for q, _ in slot["banked"]]
+        ss = [sc for _, sc in slot["banked"]]
+        pairs = zip(adel_agg_q8_grouped(qs, ss, ids, coeffs),
+                    adel_agg_q8_grouped_plain(qs, ss, ids, coeffs))
+    pairs = list(pairs)
+    return (max(float((o - r).abs().max()) for o, r in pairs),
+            max(float(r.abs().max()) for _, r in pairs))
+
+
+def vgg_buffered(torch, vgg: dict) -> dict:
+    """The buffered backend on the VGG-11 cell (U=10, ADEL, 5 rounds,
+    ``lam=0.5``, ``max_age=4``, ``buffer_cap=4``), uncompressed and int8:
+    ``lam=0`` bit-identical to dense under ``cudnn.deterministic``; with
+    ``lam>0`` one grouped fold launch a round for the on-time fold plus one
+    a carry slot folded that round (the round's ``last_carry`` staleness
+    histogram has one entry a slot), by the wrappers' counts a round and by
+    ``torch.profiler`` a round over a second run, with no other fold
+    launch; each carried slot's fold against the plain fold of the same
+    banked payload and coefficients; a round's carry counts, wall and peak
+    memory (and the dense runs' peak). Returns each fold kernel's launches
+    a round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.backends import make_backend
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.tree import tree_leaves
+    R = ROUNDS_MAIN
+    model = vgg["model"]
+    ids = tree_leaves(model.layer_ids(model.init(torch.Generator(), "meta")))
+    counters = fold_counters()
+
+    def same(a, b):
+        (pa, ha), (pb, hb) = a, b
+        return ha.as_dict() == hb.as_dict() and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(pa),
+                                              tree_leaves(pb)))
+
+    per_path = {}
+    for comp in (None, "int8"):
+        tag = f"[vgg11 buffered] {comp or 'none':4s}"
+        kernel = "adel_agg_grouped" if comp is None else "adel_agg_q8_grouped"
+        flag = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            runs = [run_rounds(torch, vgg, R, exec=ExecSpec(
+                backend=b, compression=comp)) for b in ("dense", "buffered")]
+        finally:
+            torch.backends.cudnn.deterministic = flag
+        identical = same(*runs)
+        dense_peak = torch.cuda.max_memory_allocated() / 2**20
+        del runs
+        print(f"{tag} lam=0 bit_identical_to_dense(cudnn.deterministic)="
+              f"{identical} peak_mb(dense and lam=0)={dense_peak:.1f}",
+              flush=True)
+        check(identical, f"{tag} lam=0 is not the dense round")
+
+        bk = make_backend("buffered", model, compression=comp,
+                          device="cuda", **BUFFERED)
+        folds, fold_slot = [], bk._fold_slot
+
+        def spy(params, slot, w, fold_slot=fold_slot, folds=folds):
+            folds.append((slot, w))
+            return fold_slot(params, slot, w)
+
+        bk._fold_slot = spy
+        rows = []
+        marks = {"t": None, "n": 0}
+
+        def on_round(t, params, hist):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            fired = sum(c.launches for c in counters.values())
+            rows.append({"carry": dict(bk.last_carry),
+                         "wall_ms": 1e3 * (now - marks["t"]),
+                         "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+                         "launches": fired - marks["n"],
+                         "own": counters[kernel].launches})
+            marks["t"], marks["n"] = now, fired
+
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks["t"] = time.perf_counter()
+        _, hist = run_rounds(torch, vgg, R, backend=bk, on_round=on_round)
+        fired = {k: c.launches for k, c in counters.items()}
+        want_rounds = [1 + len(r["carry"]["stale"]) for r in rows]
+        for t, r in enumerate(rows):
+            c = r["carry"]
+            print(f"{tag} round {t + 1}: carried_in={c['carried_in']} "
+                  f"carried_out={c['carried_out']} carried_dropped="
+                  f"{c['carried_dropped']} stale={c['stale']} slots_folded="
+                  f"{len(c['stale'])} fold_launches={r['launches']} "
+                  f"wall_ms={r['wall_ms']:.3f} peak_mb={r['peak_mb']:.1f}",
+                  flush=True)
+        check([r["launches"] for r in rows] == want_rounds,
+              f"{tag} fold launches a round {[r['launches'] for r in rows]}, "
+              f"want 1 + the slots folded {want_rounds}")
+        check(fired == {k: (sum(want_rounds) if k == kernel else 0)
+                        for k in fired},
+              f"{tag} wrapper launch counts {fired}")
+        check(sum(want_rounds) > R, f"{tag} no carried slot was folded")
+        check(all(math.isfinite(v) for v in hist.train_loss + hist.accuracy),
+              f"{tag} loss or accuracy not finite")
+        check(len(folds) == sum(want_rounds) - R,
+              f"{tag} {len(folds)} slot folds, want {sum(want_rounds) - R}")
+        # each carried slot's fold against its plain version (these
+        # launches come after the counts were read)
+        errs = [slot_fold_error(torch, slot, w, ids, comp)
+                for slot, w in folds]
+        tol = TOL["f32" if comp is None else "q8"][0]
+        worst = max(e / (1 + top) for e, top in errs)
+        print(f"{tag} carried-slot folds={len(errs)} max_abs_err="
+              f"{max(e for e, _ in errs):.3e} max_abs="
+              f"{max(t for _, t in errs):.3e} (kernel vs plain on the banked "
+              f"payload) acc={hist.accuracy} loss={hist.train_loss}",
+              flush=True)
+        check(worst <= tol, f"{tag} a slot fold disagrees with its plain "
+                            f"version: {worst:.3e}")
+        del folds[:], errs
+        del bk._fold_slot                 # the spy held the backend
+        # the same run under the profiler, one profile a round: device
+        # launches by kernel name against the round's carry
+        prof = {}
+
+        def start():
+            prof["on"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["on"].start()
+
+        def on_round_prof(t, params, hist):
+            torch.cuda.synchronize()
+            prof["on"].stop()
+            prof.setdefault("rows", []).append(
+                (fold_launches(prof["on"]), 1 + len(bk.last_carry["stale"])))
+            start()
+
+        start()
+        run_rounds(torch, vgg, R, backend=bk, on_round=on_round_prof)
+        prof["on"].stop()
+        for t, (seen, n) in enumerate(prof["rows"]):
+            want = {k: 0 for k in seen}
+            want[kernel] = n
+            check(seen == want, f"{tag} round {t + 1}: profiled fold "
+                                f"launches {seen}, want {want}")
+        print(f"{tag} profiler fold_launches a round="
+              f"{[seen[kernel] for seen, _ in prof['rows']]} (1 + slots "
+              f"folded: {[n for _, n in prof['rows']]}; no other fold "
+              f"kernel)", flush=True)
+        per_path["adel_agg" if comp is None else "adel_agg_q8"] = \
+            want_rounds
+        # dense against buffered, steady rounds 2-4, in turns
+        walls = {"dense": [], "buffered": []}
+        for name in ("dense", "buffered", "buffered", "dense"):
+            bk.reset_state()
+            _, wall = timed_rounds(torch, vgg, R, **(
+                {"backend": bk} if name == "buffered" else
+                {"exec": ExecSpec(compression=comp)}))
+            walls[name].append(sum(wall[1:R - 1]) / (R - 2))
+        print(f"{tag} steady wall ms a round (rounds 2-4, in turns): "
+              + " ".join(f"{k}={[round(w, 3) for w in v]}"
+                         for k, v in walls.items()), flush=True)
+        bk.reset_state()
+        del bk, prof
+        torch.cuda.empty_cache()
+    return per_path
+
+
+def vgg_fleet(torch, vgg: dict) -> dict:
+    """``run_fleet`` at full VGG-11 width on ``parametric:longtail-mobile``
+    at 10,000 and 1,000,000 devices, Bernoulli(0.7) availability, cohort
+    16, the hierarchical backend over 4 edge regions, the cell's synthetic
+    CIFAR over 1,024 shards (``partition_fleet``), 3 rounds: region ids
+    from the population (the ledger's region census equals the distinct
+    ``id % 4`` of each round's cohort, redrawn here from the same seed),
+    one grouped fold launch a non-empty region a round by the wrappers and
+    by ``torch.profiler`` and no other fold launch, finite losses, and the
+    ``cohort`` span's host ms at both sizes. Returns the launches a round
+    at 1,000,000 devices."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.fleet import make_population, partition_fleet, run_fleet
+    model = vgg["model"]
+    data = partition_fleet(*vgg["raw"], FLEET_SHARDS, alpha=0.5, seed=0)
+    counters = fold_counters()
+    kw = dict(availability="bernoulli", availability_kwargs=(("rate", 0.7),),
+              regions=FLEET_REGIONS)
+    cohort_ms, out = {}, None
+    for size in FLEET_SIZES:
+        tag = f"[vgg11 fleet] {size:>9,d} devices"
+        pop = make_population("parametric:longtail-mobile", size=size, **kw)
+        redraw = make_population("parametric:longtail-mobile", size=size,
+                                 **kw)
+        rng = np.random.default_rng([2077, 0])
+        want_regions = [len(np.unique(redraw.sample_cohort(
+            t, rng, U=FLEET_COHORT).ids % FLEET_REGIONS))
+            for t in range(FLEET_ROUNDS)]
+        sink = obs.MemorySink()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, hist = run_fleet(
+                model, pop, data=data, rounds=FLEET_ROUNDS,
+                cohort_size=FLEET_COHORT,
+                exec=ExecSpec(backend="hierarchical", regions=FLEET_REGIONS),
+                T_max=FLEET_ROUNDS * model.L * 0.85, eta0=0.05,
+                eta_decay=0.02, solver_steps=300, seed=0,
+                tracer=obs.Tracer(sink), device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = obs.ledger_rows(sink.records)
+        seen = fold_launches(prof)
+        fired = {k: c.launches for k, c in counters.items()}
+        phases = hist.telemetry["phases"]
+        cohort_ms[size] = (1e3 * phases["cohort"]["total_s"]
+                           / phases["cohort"]["count"])
+        regions = [r["regions"] for r in rows]
+        print(f"{tag} rounds={hist.rounds} available={hist.available} "
+              f"regions_a_round={regions} (cohort ids mod 4: "
+              f"{want_regions}) fold_launches={seen} (wrappers: {fired}) "
+              f"loss={hist.train_loss} acc={hist.accuracy} cohort_span_ms="
+              f"{cohort_ms[size]:.3f} local_train_ms="
+              f"{1e3 * phases['local_train']['total_s'] / FLEET_ROUNDS:.3f} "
+              f"a round, run_s={wall:.3f} (solve included)", flush=True)
+        check(len(rows) == FLEET_ROUNDS, f"{tag} ran {len(rows)} rounds")
+        check(regions == want_regions,
+              f"{tag} regions {regions} are not the cohort's ids mod "
+              f"{FLEET_REGIONS}: {want_regions}")
+        want = {k: 0 for k in seen}
+        want["adel_agg_grouped"] = sum(regions)
+        check(seen == want, f"{tag} fold launches {seen}, want {want}")
+        check(fired == {k: (sum(regions) if k == "adel_agg_grouped" else 0)
+                        for k in fired}, f"{tag} wrapper counts {fired}")
+        check(all(math.isfinite(v) for v in hist.train_loss),
+              f"{tag} loss not finite")
+        out = regions
+    small, large = (cohort_ms[n] for n in FLEET_SIZES)
+    print(f"[vgg11 fleet] cohort span host ms a round: "
+          + " ".join(f"{n:,d} devices={v:.3f}" for n, v in cohort_ms.items())
+          + f" (ratio {large / small:.3f})", flush=True)
+    return out
+
+
+def fleet_scenarios(torch) -> None:
+    """Three of the registry's scenarios on the card at their published
+    size and rounds (``run_scenario``): rounds run, skipped rounds, replan
+    events, carried totals, final accuracy and the fold launches; the
+    replan scenario's executed deadlines sum to at most ``T_max``."""
+    from repro_torch import obs
+    from repro_torch.fleet.scenarios import get_scenario, run_scenario
+    counters = fold_counters()
+    for name in SCENARIO_RUNS:
+        scn = get_scenario(name)
+        sink = obs.MemorySink()
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = run_scenario(scn, verbose=False, tracer=obs.Tracer(sink),
+                           device="cuda")
+        wall = time.perf_counter() - t0
+        rows = obs.ledger_rows(sink.records)
+        counts = res["telemetry"]["counters"]
+        phases = res["telemetry"]["phases"]
+        host = {ph: round(1e3 * phases[ph]["total_s"]
+                          / phases[ph]["count"], 3)
+                for ph in ("replan", "plan", "local_train") if ph in phases}
+        carried = {k: sum(r.get(k, 0) for r in rows)
+                   for k in ("carried_in", "carried_out", "carried_dropped")}
+        T_max = scn.rounds * 3 * 0.5          # run_fleet's default, MLP L=3
+        spent = sum(res["deadlines"])
+        fired = {k: c.launches for k, c in counters.items()}
+        replans = [(r["round"], r["reachable"], r["U_est"],
+                    round(sum(r["T_tail"]), 4)) for r in res["replans"]]
+        print(f"[fleet scenarios] {name}: fleet={res['fleet']['size']} "
+              f"cohort={res['cohort']['size']} backend={res['backend']} "
+              f"rounds_run={len(rows)} skipped="
+              f"{counts.get('rounds_skipped', 0)} replans (round, "
+              f"reachable, U_est, tail sum)={replans}"
+              f" carried={carried} final_acc={res['accuracy'][-1]:.4f} "
+              f"deadline_sum={spent:.6f} T_max={T_max} "
+              f"fold_launches={fired} host_ms_a_call={host} "
+              f"run_s={wall:.3f}", flush=True)
+        check(rows and all(math.isfinite(v) for v in res["train_loss"]),
+              f"{name}: no rounds or a loss not finite")
+        check(spent <= T_max * (1 + 1e-6),
+              f"{name}: deadlines sum {spent} past T_max {T_max}")
+        if name.endswith("-replan"):
+            check(res["replans"], f"{name}: no replan event")
+        if res["backend"] == "buffered":
+            check(carried["carried_in"] > 0, f"{name}: nothing carried in")
+        kernel = ("adel_agg_q8_grouped" if res["compression"]["mode"] == "int8"
+                  else "adel_agg_grouped")
+        check(fired[kernel] >= len(rows) and not any(
+            v for k, v in fired.items() if k != kernel),
+              f"{name}: fold launches {fired}")
 
 
 def mlp_quickstart(torch) -> float:
@@ -1640,6 +2008,9 @@ def main() -> int:
         vgg_shard_map_gloo(torch, vgg, tmp)
     for path, n in shard.items():
         backend_launches[path]["shard_map"] = n
+    buffered = vgg_buffered(torch, vgg)
+    fleet = vgg_fleet(torch, vgg)
+    fleet_scenarios(torch)
     mlp_quickstart(torch)
     prefill = hymba_prefill(torch)
     launches.update(prefill["launches"])
@@ -1664,11 +2035,13 @@ def main() -> int:
             "library_ms": rnd["library_ms"], "call_ms": rnd["call_ms"],
             "entry": entries[name],
             "launches_per_round_by_backend": backend_launches[name],
+            "buffered_launches_by_round": buffered[name],
             "shapes": "one round's fold: 38 VGG-11 leaves at U=10, "
                       + ("f32" if name == "adel_agg" else "int8")
                       + ", one grouped launch",
             "card": card})
     kernels[1]["per_leaf_ms"] = per_round["adel_agg_q8 per-leaf"]["ms"]
+    kernels[0]["fleet_hierarchical_launches_by_round"] = fleet
     lm_replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                    "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
     for name, main_case in (("flash_attention", ("hymba", "bf16")),

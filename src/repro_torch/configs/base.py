@@ -1,9 +1,10 @@
 """ArchConfig: one dataclass describing every supported architecture family,
-plus the four assigned input shapes (port of ``repro.configs.base``).
+plus the four assigned input shapes, and ``FleetConfig``, the fleet
+simulation block (port of ``repro.configs.base``).
 
 The port keeps its own copy: the reference module imports the compression,
-re-planning and execution-spec modules of the JAX package. ``FleetConfig``
-is not here yet (ROADMAP 1.11).
+re-planning and execution-spec modules of the JAX package; this one
+imports the port's.
 
 Families: dense (GQA transformer), ssm (Mamba2 SSD), moe (GQA/MLA + MoE FFN),
 vlm / audio (transformer backbone with a stubbed modality frontend), hybrid
@@ -13,8 +14,14 @@ port's model covers dense, hybrid and ssm (``models/transformer.py``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
-__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "pad_vocab"]
+from repro_torch.core.compression import CompressionConfig
+from repro_torch.core.replan import ReplanConfig
+from repro_torch.fl.spec import ExecSpec
+
+__all__ = ["ArchConfig", "CompressionConfig", "ExecSpec", "FleetConfig",
+           "InputShape", "INPUT_SHAPES", "ReplanConfig", "pad_vocab"]
 
 
 def pad_vocab(v: int, multiple: int = 512) -> int:
@@ -203,6 +210,71 @@ class ArchConfig:
         # keep n_heads a multiple of n_kv
         kw["n_heads"] = max(kw["n_heads"] - kw["n_heads"] % kw["n_kv"], kw["n_kv"])
         return ArchConfig(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Fleet-simulation block consumed by ``repro_torch.fleet``.
+
+    Describes a heterogeneous device population and the per-round cohort
+    drawn from it (see ``repro_torch/fleet/__init__.py``).
+    ``availability_kwargs`` is a tuple of (key, value) pairs so the config
+    stays hashable and frozen; :meth:`availability_dict` consumes it.
+    """
+
+    preset: str = "uniform"        # profiles.PRESETS key (ignored w/ trace)
+    size: int = 500                # number of simulated devices
+    trace_path: Optional[str] = None   # JSON device trace overrides preset
+    # population source (repro_torch.fleet.population.PopulationSpec
+    # forms: "PRESET" | "trace:PATH" | "mobiperf:PATH" |
+    # "parametric:PRESET"); when set it wins over preset/trace_path
+    population: Optional[str] = None
+    availability: str = "always-on"    # availability.AVAILABILITY key
+    availability_kwargs: tuple = ()
+    # edge-region count for hierarchical two-tier aggregation (device id %
+    # regions); 1 = flat single-server topology
+    regions: int = 1
+    cohort_size: int = 32          # U clients planned per round
+    cohort_strategy: str = "uniform"   # uniform | power-of-choice | stratified
+    # the full execution spec (repro_torch.fl.spec.ExecSpec); when set it
+    # wins over the backend/chunk_size/compression fields below
+    exec: Optional[ExecSpec] = None
+    # execution backend (repro_torch.fl.backends): dense | chunked |
+    # shard_map | temporal | buffered | hierarchical
+    backend: str = "chunked"
+    chunk_size: int = 16           # client-shard axis chunk (chunked backend)
+    # online re-planning (repro_torch.core.replan): trigger "never" keeps
+    # the static schedule; "every-k" / "drift" re-solve the remaining
+    # horizon against the reachable population
+    replan: ReplanConfig = ReplanConfig()
+    # client->server wire compression (repro_torch.core.compression); also
+    # scales the solver's per-user communication time B_u by the wire ratio
+    compression: CompressionConfig = CompressionConfig()
+    seed: int = 0
+
+    def availability_dict(self) -> dict:
+        return dict(self.availability_kwargs)
+
+    def population_spec(self):
+        """The config's :class:`repro_torch.fleet.population.
+        PopulationSpec`: ``population`` when set, else the preset/trace
+        fields mapped onto the spec's source forms (imported lazily, so
+        configs import without the fleet subsystem)."""
+        from repro_torch.fleet.population import PopulationSpec
+        source = self.population or (f"trace:{self.trace_path}"
+                                     if self.trace_path else self.preset)
+        return PopulationSpec(source=source, size=self.size,
+                              availability=self.availability,
+                              availability_kwargs=self.availability_kwargs,
+                              regions=self.regions, seed=self.seed)
+
+    def exec_spec(self) -> ExecSpec:
+        """The effective execution spec: ``exec`` when set, else one built
+        from the backend / chunk_size / compression fields."""
+        if self.exec is not None:
+            return self.exec
+        return ExecSpec(backend=self.backend, chunk_size=self.chunk_size,
+                        compression=self.compression)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,9 +4,11 @@ PyTorch (port of ``repro.core.baselines``).
 A policy decides, per round t: the deadline T_t (the simulated round
 wall-clock), each client's batch size S_t^u, the per-(client, layer)
 contribution mask, and the aggregation rule (bias-corrected layer-wise,
-plain mean, or HeteroFL's width-overlap mean). Policies plan against the
-static config they were built with (the reference's per-round cohort
-``view`` serves fleets, not ported yet).
+plain mean, or HeteroFL's width-overlap mean). ``round(draws, t, view=)``
+plans against an optional per-round :class:`AnalysisConfig` *view* whose
+``U``/``P``/``B`` describe the cohort actually sampled that round (the
+fleet engine derives one per round); without one the policy plans against
+the static config it was built with.
 
 All randomness flows through the ``draws`` object the runtime passes to
 :meth:`Policy.round` (:class:`repro_torch.fl.runtime.Draws`: ``poisson(t,
@@ -40,15 +42,28 @@ class RoundPlan:
 
 
 class Policy:
-    """Per-round decision maker: ``round(draws, t)`` plans round t."""
+    """Per-round decision maker: ``round(draws, t, view=None)`` plans
+    round t, against ``view`` when given (see the module docstring)."""
 
     name: str = "base"
 
     def __init__(self, cfg: AnalysisConfig):
         self.cfg = cfg
 
-    def round(self, draws, t: int) -> RoundPlan:  # pragma: no cover
+    def round(self, draws, t: int,
+              view: Optional[AnalysisConfig] = None
+              ) -> RoundPlan:  # pragma: no cover
         raise NotImplementedError
+
+    def _resolve(self, view: Optional[AnalysisConfig]) -> AnalysisConfig:
+        return view if view is not None else self.cfg
+
+    def _fixed_batch(self, view: Optional[AnalysisConfig], T: float):
+        """Fixed-batch policies (salf/drop/wait): the cached S for the
+        static population, re-derived from the cohort view otherwise."""
+        if view is None:
+            return self.S
+        return straggler.fixed_batch(T, self.m, view)
 
 
 class AdelPolicy(Policy):
@@ -60,11 +75,11 @@ class AdelPolicy(Policy):
         super().__init__(cfg)
         self.schedule = schedule
 
-    def round(self, draws, t):
+    def round(self, draws, t, view=None):
         T_t = float(self.schedule.T[t])
         mask, p, S, _ = straggler.sample_round(
             functools.partial(draws.poisson, t), T_t, self.schedule.m,
-            self.cfg)
+            self._resolve(view))
         return RoundPlan(mask=mask, p=p, batch_sizes=S, elapsed=T_t,
                          bias_correct=True)
 
@@ -81,11 +96,12 @@ class SalfPolicy(Policy):
         self.T_t = cfg.T_max / cfg.R
         self.S = straggler.fixed_batch(self.T_t, self.m, cfg)
 
-    def round(self, draws, t):
-        cfg = self.cfg
+    def round(self, draws, t, view=None):
+        cfg = self._resolve(view)
+        S_fix = self._fixed_batch(view, self.T_t)
         mask, p, _ = straggler.sample_round_fixed(
-            functools.partial(draws.poisson, t), self.T_t, self.S, cfg)
-        S = torch.full((cfg.U,), self.S)
+            functools.partial(draws.poisson, t), self.T_t, S_fix, cfg)
+        S = torch.full((cfg.U,), S_fix)
         return RoundPlan(mask=mask, p=p, batch_sizes=S, elapsed=self.T_t,
                          bias_correct=True)
 
@@ -102,15 +118,16 @@ class DropPolicy(Policy):
         self.T_t = cfg.T_max / cfg.R
         self.S = straggler.fixed_batch(self.T_t, self.m, cfg)
 
-    def round(self, draws, t):
-        cfg = self.cfg
+    def round(self, draws, t, view=None):
+        cfg = self._resolve(view)
+        S_fix = self._fixed_batch(view, self.T_t)
         P = torch.as_tensor(cfg.P, dtype=torch.float32)
         B = torch.as_tensor(cfg.B_eff, dtype=torch.float32)
-        lam = P / self.S * torch.clamp(self.T_t - B, min=0.0)
+        lam = P / S_fix * torch.clamp(self.T_t - B, min=0.0)
         z = draws.poisson(t, lam)
         full = (z >= cfg.L).to(torch.float32)                   # (U,)
         mask = full[:, None].expand(cfg.U, cfg.L).contiguous()
-        S = torch.full((cfg.U,), self.S)
+        S = torch.full((cfg.U,), S_fix)
         return RoundPlan(mask=mask, p=torch.zeros(cfg.L), batch_sizes=S,
                          elapsed=self.T_t, bias_correct=False)
 
@@ -128,15 +145,16 @@ class WaitPolicy(Policy):
         self.T_ref = cfg.T_max / cfg.R
         self.S = straggler.fixed_batch(self.T_ref, self.m, cfg)
 
-    def round(self, draws, t):
-        cfg = self.cfg
+    def round(self, draws, t, view=None):
+        cfg = self._resolve(view)
+        S_fix = self._fixed_batch(view, self.T_ref)
         P = torch.as_tensor(cfg.P, dtype=torch.float32)
         B = torch.as_tensor(cfg.B_eff, dtype=torch.float32)
         # full backprop time = sum of L iid Exp(S/P) = Gamma(L, scale=S/P)
-        g = draws.gamma(t, cfg.L, cfg.U) * (self.S / P)
+        g = draws.gamma(t, cfg.L, cfg.U) * (S_fix / P)
         elapsed = float(torch.max(g + B))
         mask = torch.ones((cfg.U, cfg.L), dtype=torch.float32)
-        S = torch.full((cfg.U,), self.S)
+        S = torch.full((cfg.U,), S_fix)
         return RoundPlan(mask=mask, p=torch.zeros(cfg.L), batch_sizes=S,
                          elapsed=elapsed, bias_correct=False)
 
@@ -146,8 +164,10 @@ class HeteroFLPolicy(Policy):
     capability; aggregation averages each parameter entry over the clients
     whose submodel contains it. Compute per layer scales ~ r^2 (both weight
     matrices shrink), so slow clients nearly always finish their small
-    model. ``RoundPlan.width_ratios`` tells the runtime which width masks
-    to build; the width-overlap mean runs on every execution backend
+    model. With a per-round cohort ``view`` (fleet runs) the capability
+    buckets are re-derived from the sampled cohort's P.
+    ``RoundPlan.width_ratios`` tells the runtime which width masks to
+    build; the width-overlap mean runs on every execution backend
     (:mod:`repro_torch.fl.backends`)."""
 
     name = "heterofl"
@@ -167,12 +187,14 @@ class HeteroFLPolicy(Policy):
         quart = (order * len(cls.LEVELS)) // len(P)
         return np.asarray([cls.LEVELS[q] for q in quart], np.float32)
 
-    def round(self, draws, t):
-        cfg = self.cfg
+    def round(self, draws, t, view=None):
+        cfg = self._resolve(view)
+        ratios = (self.ratios if view is None
+                  else self._capability_ratios(cfg.P))
         P = torch.as_tensor(cfg.P, dtype=torch.float32)
         B = torch.as_tensor(cfg.B_eff, dtype=torch.float32)
         S_fix = straggler.fixed_batch(self.T_t, self.m, cfg)
-        r = torch.as_tensor(self.ratios)
+        r = torch.as_tensor(ratios)
         # per-layer time Exp(S r^2 / P) -> completed layers
         # ~ Poisson(P (T - B) / (S r^2))
         lam = P / (S_fix * r ** 2) * torch.clamp(self.T_t - B, min=0.0)
@@ -182,7 +204,7 @@ class HeteroFLPolicy(Policy):
         S = torch.full((cfg.U,), S_fix)
         return RoundPlan(mask=mask, p=torch.zeros(cfg.L), batch_sizes=S,
                          elapsed=self.T_t, bias_correct=False,
-                         width_ratios=self.ratios)
+                         width_ratios=ratios)
 
     def describe(self):
         return {"name": self.name, "m": self.m, "ratios": self.ratios.tolist()}

@@ -31,7 +31,7 @@ class AnalysisConfig:
     P: np.ndarray               # per-user compute capability P_u, shape (U,) (B1)
     B: np.ndarray               # per-user communication time B_u, shape (U,) (B2)
     delta1: float = 1.0         # Delta_1 = E||w_1 - w_opt||^2
-    # Availability-aware planning (beyond-paper; re-planning is not ported yet): the
+    # Availability-aware planning (beyond-paper, repro_torch.core.replan): the
     # EXPECTED plannable cohort size per round, shape (R,). When set, the
     # Theorem-1 terms evaluate round t at U_round[t] contributors (C_t's
     # Q^U truncation, B_t's 1/U^2 averaging) while P/B/sigma2 keep

@@ -21,6 +21,10 @@ client updates:
 * :class:`TemporalBackend`     — one client at a time: each client's delta,
   cast to f32, is folded with its Eq. 5 coefficient row into one f32
   accumulator, so peak memory is one delta pytree whatever the cohort size.
+* :class:`BufferedBackend`     — dense plus a carry ring: the layers a
+  straggler finishes after the deadline are banked and folded into a later
+  round with staleness weight ``lam ** tau`` (``lam=0``: dense, bit for
+  bit).
 * :class:`HierarchicalBackend` — two-tier edge aggregation: the cohort
   splits into edge regions (the round context's region ids, or a
   contiguous split), each region computes one partial against the global
@@ -32,8 +36,9 @@ fold goes through the hand-written grouped kernels: one
 ``adel_agg_grouped`` launch per fold uncompressed and one
 ``adel_agg_q8_grouped`` launch per fold under int8 (a plain scatter-add a
 leaf for topk8), so a round launches one fold (dense), one a chunk
-(chunked), one a rank (shard_map), one a client (temporal) or one a region
-(hierarchical). Under
+(chunked), one a rank (shard_map), one a client (temporal), one a region
+(hierarchical), or one plus one a carry slot folded that round
+(buffered). Under
 compression the reduction consumes the wire payload: each slice of the
 cohort is compressed (:func:`repro_torch.core.compression.
 compress_deltas`) and folded into an f32 accumulator. HeteroFL rounds
@@ -59,8 +64,7 @@ spans measure the card's work; numerics are untouched either way.
 
 Backends are selected through :class:`repro_torch.fl.spec.ExecSpec`
 (``make_backend(exec=spec, model=model)``) or by legacy name; both resolve
-through :meth:`ExecSpec.resolve`. The reference's ``buffered`` backend
-waits for a later slice (ROADMAP.md item 1.9).
+through :meth:`ExecSpec.resolve`.
 """
 from __future__ import annotations
 
@@ -72,12 +76,15 @@ import torch
 from repro_torch import obs
 from repro_torch.core.aggregation import (aggregate_grads,
                                           aggregate_grads_chunk,
+                                          aggregate_with_coeffs,
                                           all_reduce_tree,
                                           hetero_overlap_mean,
-                                          hetero_overlap_partials)
+                                          hetero_overlap_partials,
+                                          layer_coefficients)
 from repro_torch.core.compression import (aggregate_compressed,
                                           compress_deltas, make_compression,
                                           payload_bytes)
+from repro_torch.core.straggler import late_arrival_delays, late_p_layers
 from repro_torch.device import resolve_device, sync
 from repro_torch.fl.client import batched_client_deltas
 from repro_torch.fl.spec import AGG_IMPLS, BACKENDS, ExecSpec
@@ -88,7 +95,8 @@ from repro_torch.tree import tree_map
 
 __all__ = ["BACKENDS", "AGG_IMPLS", "ExecSpec", "ExecutionBackend",
            "DenseBackend", "ChunkedBackend", "ShardMapBackend",
-           "TemporalBackend", "HierarchicalBackend", "make_backend"]
+           "TemporalBackend", "BufferedBackend", "HierarchicalBackend",
+           "make_backend"]
 
 PyTree = Any
 
@@ -451,6 +459,230 @@ class TemporalBackend(ExecutionBackend):
                                 label="client", dtype=torch.float32)
 
 
+class BufferedBackend(DenseBackend):
+    """Semi-async delayed-gradient execution: the layers a straggler misses
+    at the deadline are banked and folded into later rounds with staleness
+    decay.
+
+    The round-synchronous Eq. 5 fold discards every layer a client did not
+    finish by the deadline. This backend keeps that work: the straggler
+    continues its backward pass, and the layers it finishes LATE — the
+    complement ``1 - mask`` of the round's contribution mask — arrive once
+    the simulated clock reaches
+
+        ``arrival_u = round_end + max(L - z_u, 0) * S_u / P_u + B_u``
+
+    (:func:`repro_torch.core.straggler.late_arrival_delays`). Each later
+    round ``t`` folds every banked contribution whose arrival the clock has
+    passed, with weight ``lam ** tau`` (``tau = t - work_round >= 1``),
+    through the Eq. 5 coefficient path: the banked coefficients are
+    :func:`repro_torch.core.aggregation.layer_coefficients` of the LATE
+    mask with the late-set zero-contributor probabilities
+    (:func:`repro_torch.core.straggler.late_p_layers`), so at weight 1 the
+    fold is an unbiased estimate of the late set's layer mean.
+
+    A round runs in five steps, as the reference's:
+
+    1. fold decisions on the host, over the ring's slot metadata, in the
+       reference's float32 numpy arithmetic (an eligibility that flipped
+       at a boundary would change the trajectory);
+    2. the round's late-set coefficients, on the host;
+    3. the local updates and the on-time fold (one grouped launch),
+       keeping the round's bankable payload: the f32 deltas, or under
+       compression the SAME wire tuples the on-time fold consumed;
+    4. one fold of each eligible slot with coefficients ``c_late * w``
+       (one ``adel_agg_grouped`` launch, or ``adel_agg_q8_grouped`` for
+       int8 tuples), each applied to params in f32;
+    5. banking, into a ring of ``buffer_cap`` slots (the oldest evicted).
+
+    The decisions read the planner's host copy of the mask
+    (``ctx.mask``), never the device's copy, so a buffered round adds no
+    device sync. A slot owns its payload: the deltas and wire tuples are
+    fresh outputs of the round's local update and compression, referenced
+    by nothing the runtime reuses (not the stacked batch buffers, not the
+    prefetch double buffer, not a fold's output), allocated on the main
+    stream, and never written in place; the caching allocator cannot hand
+    their memory on while the slot holds them. A round never mutates a
+    slot in place either (it rebuilds the ring), so :meth:`warm_up`'s
+    restore of the ring is exact. Work older than ``max_age`` rounds, or
+    evicted by the ring, is dropped (the ``carried_dropped`` ledger
+    column).
+
+    ``lam=0`` (the default) delegates every round to the inherited dense
+    round, bit for bit. ``lam>0`` needs the runtime's
+    :class:`repro_torch.fl.runtime.RoundContext` (``ctx=``) and rejects
+    HeteroFL width-mask rounds (the width-overlap mean has no late-set
+    analogue). ``last_carry`` holds the round's ``carried_in`` /
+    ``carried_out`` / ``carried_dropped`` counts and the ``stale``
+    histogram for the runtime's ledger.
+    """
+
+    name = "buffered"
+
+    def __init__(self, model, *, lam: float = 0.0, max_age: int = 4,
+                 buffer_cap: int = 4, **kw):
+        super().__init__(model, **kw)
+        if not 0.0 <= float(lam) <= 1.0:
+            raise ValueError(f"lam={lam} must be in [0, 1]")
+        self.lam = float(lam)
+        self.max_age = int(max_age)
+        self.buffer_cap = int(buffer_cap)
+        self._slots: list[dict] = []     # FIFO ring of banked rounds
+        self.last_carry: dict = {}
+
+    @property
+    def needs_ctx(self) -> bool:        # type: ignore[override]
+        return self.lam > 0.0
+
+    def reset_state(self) -> None:
+        self._slots = []
+        self.last_carry = {}
+
+    def describe(self):
+        return {**super().describe(), "lam": self.lam,
+                "max_age": self.max_age, "buffer_cap": self.buffer_cap}
+
+    @staticmethod
+    def late_coefficients(mask: np.ndarray, U_act: int, lam, *,
+                          bias_correct: bool = True) -> torch.Tensor:
+        """The round's late-set Eq. 5 coefficients, on the host: the
+        complement ``1 - mask`` of the (U_pad, L) host mask over the first
+        ``U_act`` (real) rows, with the late-set zero-contributor
+        probabilities of the rates ``lam`` (U_act,)."""
+        real = np.arange(mask.shape[0]) < U_act
+        late = torch.from_numpy(((1.0 - mask) * real[:, None]).astype(
+            np.float32))
+        p_late = late_p_layers(torch.as_tensor(lam, dtype=torch.float32),
+                               mask.shape[1])
+        return layer_coefficients(late, p_late, bias_correct=bias_correct)
+
+    def _fold_slot(self, params, slot: dict, w: np.ndarray):
+        """``params - sum_u (c_late[u] * w[u]) . delta_u`` for one slot:
+        one grouped fold of its banked payload."""
+        ids = self.model.layer_ids(params)
+        coeffs = (slot["c_late"] * torch.from_numpy(w)[:, None]).to(
+            self.device)
+        if self.compression.mode != "none":
+            agg = aggregate_compressed(slot["banked"], params, ids, None,
+                                       None, cfg=self.compression,
+                                       coeffs=coeffs)
+        else:
+            agg = aggregate_with_coeffs(slot["banked"], ids, coeffs)
+        return apply_update(params, agg)
+
+    def run_round(self, params, xb, yb, wb, mask, p, eta, *,
+                  bias_correct, wmasks=None, ctx=None):
+        if self.lam == 0.0:
+            # exact round-synchronous semantics: the dense round, bit for
+            # bit, with no carry
+            return super().run_round(params, xb, yb, wb, mask, p, eta,
+                                     bias_correct=bias_correct,
+                                     wmasks=wmasks)
+        if wmasks is not None:
+            raise ValueError("buffered backend with lam>0 is incompatible "
+                             "with HeteroFL width-mask aggregation")
+        if ctx is None:
+            raise ValueError("buffered backend with lam>0 needs the "
+                             "runtime's RoundContext (ctx=): the carry "
+                             "buffer is driven by the simulated clock")
+        if ctx.mask is None:
+            raise ValueError("buffered backend needs the planner's host "
+                             "copy of the mask (ctx.mask)")
+        self._check_rule(wmasks)
+        mask_h = np.asarray(ctx.mask, np.float32)
+        U_pad, L = mask_h.shape
+        U_act = int(ctx.U_act)
+        t = int(ctx.t)
+        depth = mask_h.sum(1)                         # (U_pad,) realized z
+        real = np.arange(U_pad) < U_act
+        late_rows = real & (depth < L)
+
+        # 1. fold decisions on the host, over copies of the slots' pending
+        #    rows: which banked arrivals has the simulated clock passed?
+        slots = [dict(s, pending=s["pending"].copy()) for s in self._slots]
+        folds, dropped, stale = [], 0, {}
+        for slot in slots:
+            pend = slot["pending"]
+            if not pend.any():
+                continue
+            tau = t - slot["round"]
+            if tau > self.max_age:
+                dropped += int(pend.sum())
+                pend[:] = False
+                continue
+            elig = pend & (slot["arrival"] <= float(ctx.sim_end))
+            if elig.any():
+                w = np.where(elig, np.float32(self.lam) ** tau,
+                             np.float32(0.0)).astype(np.float32)
+                folds.append((slot, w))
+                stale[tau] = stale.get(tau, 0) + int(elig.sum())
+                pend &= ~elig
+
+        # 2. this round's late-set coefficients: Eq. 5 on the COMPLEMENT
+        #    mask with the late-set zero-contributor probabilities
+        bank = bool(late_rows.any())
+        if bank:
+            c_late = self.late_coefficients(mask_h, U_act, ctx.lam,
+                                            bias_correct=bool(bias_correct))
+
+        # 3. the local updates and the on-time fold, keeping the bankable
+        #    payload
+        xb, yb, wb, mask, p = self._inputs(xb, yb, wb, mask, p)
+        tracer, comp = self.tracer, self.compression
+        with tracer.span("local_train", backend=self.name):
+            deltas = self._deltas(params, xb, yb, wb, eta)
+            self._fence()
+        if tracer.active:
+            self._count_bytes(params, U_pad)
+        with tracer.span("aggregate", backend=self.name):
+            ids = self.model.layer_ids(params)
+            if comp.mode != "none":
+                banked = compress_deltas(deltas, ids, comp)
+                agg = aggregate_compressed(banked, params, ids, mask, p,
+                                           cfg=comp,
+                                           bias_correct=bias_correct)
+            else:
+                banked = tree_map(lambda d: d.to(torch.float32), deltas)
+                agg = aggregate_grads(deltas, ids, mask, p,
+                                      bias_correct=bias_correct)
+            params = apply_update(params, agg)
+            self._fence()
+
+        # 4. fold every arrived carry slot
+        if folds:
+            with tracer.span("aggregate", backend=self.name,
+                             carried=sum(int((w > 0).sum())
+                                         for _, w in folds)):
+                for slot, w in folds:
+                    params = self._fold_slot(params, slot, w)
+                self._fence()
+
+        # 5. bank this round's late work (ring eviction drops the oldest)
+        if bank:
+            delays = late_arrival_delays(depth[:U_act], ctx.layer_s, ctx.B,
+                                         L)
+            arrival = np.full(U_pad, np.inf, np.float32)
+            arrival[:U_act] = float(ctx.sim_end) + np.asarray(delays)
+            if len(slots) >= self.buffer_cap:
+                evicted = slots.pop(0)
+                dropped += int(evicted["pending"].sum())
+            slots.append({"round": t, "banked": banked, "c_late": c_late,
+                          "arrival": arrival, "pending": late_rows.copy()})
+        self._slots = slots
+
+        carried_in = sum(stale.values())
+        carried_out = sum(int(s["pending"].sum()) for s in slots)
+        self.last_carry = {"carried_in": carried_in,
+                           "carried_out": carried_out,
+                           "carried_dropped": dropped,
+                           "stale": stale}
+        tracer.count("carried_in", carried_in, backend=self.name)
+        tracer.count("carried_out", carried_out, backend=self.name)
+        if dropped:
+            tracer.count("carried_dropped", dropped, backend=self.name)
+        return params
+
+
 class HierarchicalBackend(ChunkedBackend):
     """Two-tier edge aggregation: per-region partials + one global update.
 
@@ -572,6 +804,9 @@ def make_backend(backend=None, model=None, *, exec: ExecSpec | None = None,
         return ShardMapBackend(model, mesh=spec.mesh, **kw)
     if spec.backend == "temporal":
         return TemporalBackend(model, **kw)
+    if spec.backend == "buffered":
+        return BufferedBackend(model, lam=spec.lam, max_age=spec.max_age,
+                               buffer_cap=spec.buffer_cap, **kw)
     if spec.backend == "hierarchical":
         return HierarchicalBackend(model, regions=spec.regions,
                                    chunk_size=spec.chunk_size, **kw)

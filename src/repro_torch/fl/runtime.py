@@ -5,10 +5,16 @@ cohort padding to the backend's width (padded rows carry an all-zero mask,
 batch weights and data, so they contribute nothing), HeteroFL width-mask
 derivation (cached per distinct width-ratio vector), the simulated
 wall-clock under Requirements R1 (at most R rounds) and R2 (total
-simulated time <= T_max), eval cadence and the :class:`History` record.
-HOW a round executes is an :class:`repro_torch.fl.backends.
-ExecutionBackend` (``dense`` / ``chunked`` / ``shard_map`` / ``temporal``
-/ ``hierarchical``), selected through one :class:`repro_torch.fl.spec.
+simulated time <= T_max), online re-planning (:mod:`repro_torch.core.
+replan`, including crediting the unspent deadline of skipped empty rounds
+back to the next re-solve), eval cadence and the :class:`History` record.
+WHO a round runs against is a cohort source: the same pre-stacked clients
+every round (:class:`StaticCohortSource`) or a population draw
+(:class:`repro_torch.fleet.engine.FleetCohortSource`, whose cohorts carry
+their own planning view, reachable count and edge-region ids). HOW a
+round executes is an :class:`repro_torch.fl.backends.ExecutionBackend`
+(``dense`` / ``chunked`` / ``shard_map`` / ``temporal`` / ``buffered`` /
+``hierarchical``), selected through one :class:`repro_torch.fl.spec.
 ExecSpec`.
 
 Every random draw of a run comes from one :class:`Draws` object: the
@@ -24,14 +30,17 @@ bit-identical trajectories:
 
 * ``"serial"`` (default): plan round t, execute round t, repeat.
 * ``"prefetch"``: a one-round lookahead. The sequential planner
-  (``cohort``, the policy's ``plan``, the ``T_max`` stop check, the
-  minibatch draws and the ``stack``) of round t+1 runs on one worker
-  thread while round t runs. It reads only host state and the planned
-  clock, never a result of round t, and once the initial params are drawn
-  the worker is the only consumer of the draws, so the speculation is
-  exact. On a CUDA device the worker issues its gathers on a side stream;
-  the main stream waits on an event recorded after them, and each stacked
-  tensor is marked as used by the main stream, so the caching allocator
+  (``cohort``, the replan trigger and re-solve, the policy's ``plan``, the
+  ``T_max`` stop check, the minibatch draws and the ``stack``) of round
+  t+1 runs on one worker thread while round t runs. After a skipped round
+  or a replan the next round is planned inline on the main thread: those
+  rounds change the planning state the speculation would have to guess.
+  The planner reads only host state and the planned clock, never a result
+  of round t, and once the initial params are drawn the worker is the
+  only consumer of the draws, so the speculation is exact. On a CUDA
+  device the worker issues its gathers on a side stream; the main stream
+  waits on an event recorded after them, and each stacked tensor is
+  marked as used by the main stream, so the caching allocator
   does not hand its memory on while round t+1 still reads it. HeteroFL's
   width masks read the live params and stay on the main thread. Before
   round 0 the backend runs one round and one eval on zero params
@@ -46,15 +55,17 @@ the run) converts them; accuracy is then divided in Python's double, so
 
 Observability flows through the single ``tracer=`` hook
 (:mod:`repro_torch.obs`, default :data:`repro_torch.obs.NULL_TRACER` —
-bit-identical trajectories): the runtime emits the ``cohort`` / ``plan`` /
-``stack`` / ``eval`` spans (the backends add ``local_train`` /
-``aggregate``; the planner's spans are timed where it runs and emitted on
-the main thread, as the tracer's sinks are not thread-safe), the
-``batch_elements_real`` / ``batch_elements_padded`` / ``h2d_bytes``
-counters and the ``cohort_size`` gauge, and one clock-model ledger event
-per executed round (:func:`repro_torch.obs.ledger.round_record`); under
-prefetch also the ``warm_up`` span and the ``prefetch_rounds``,
-``prefetch_overlap_s`` (worker planning time hidden behind the previous
+bit-identical trajectories): the runtime emits the ``cohort`` /
+``replan`` / ``plan`` / ``stack`` / ``eval`` spans (the backends add
+``local_train`` / ``aggregate``; the planner's spans are timed where it
+runs and emitted on the main thread, as the tracer's sinks are not
+thread-safe), the ``batch_elements_real`` / ``batch_elements_padded`` /
+``h2d_bytes`` / ``rounds_skipped`` / ``replan_solver_steps`` counters and
+the ``cohort_size`` gauge, one ``replan`` event per re-solve, and one
+clock-model ledger event per executed round
+(:func:`repro_torch.obs.ledger.round_record`); under prefetch also the
+``warm_up`` span and the ``prefetch_rounds``, ``prefetch_overlap_s``
+(worker planning time hidden behind the previous
 round's dispatch), ``dispatch_wait_s`` (main-thread stalls on the worker)
 and ``warm_up_s`` counters. The summary lands in ``History.telemetry``. On
 a CUDA device an active tracer synchronizes at the end of the backend's
@@ -71,6 +82,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.baselines import Policy, RoundPlan
+from repro_torch.core.replan import Replanner, make_replan
 from repro_torch.device import resolve_device, sync
 from repro_torch.fl.backends import make_backend
 from repro_torch.fl.client import sample_client_batches
@@ -112,6 +124,10 @@ class History:
     accuracy: list = dataclasses.field(default_factory=list)
     deadlines: list = dataclasses.field(default_factory=list)
     train_loss: list = dataclasses.field(default_factory=list)
+    # fleet runs only: reachable-device count per evaluated round
+    available: list = dataclasses.field(default_factory=list)
+    # online re-planning only: one record per mid-run re-solve
+    replans: list = dataclasses.field(default_factory=list)
     method: str = ""
     # tracer-enabled runs only: the run's telemetry summary — per-phase
     # wall totals, counter totals, the per-round clock-model ledger, and
@@ -119,9 +135,13 @@ class History:
     telemetry: dict = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> dict:
-        """JSON-round-trippable dict (``json.dump``-able as-is)."""
-        return {f.name: getattr(self, f.name)
-                for f in dataclasses.fields(self)}
+        """JSON-round-trippable dict (``json.dump``-able as-is);
+        :class:`repro_torch.core.replan.ReplanEvent` entries of
+        ``replans`` are converted through their own ``as_dict``."""
+        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        d["replans"] = [r.as_dict() if hasattr(r, "as_dict") else r
+                        for r in self.replans]
+        return d
 
 
 class Draws:
@@ -187,26 +207,39 @@ def eval_metrics(model: ModelAPI, params: PyTree, test_x: torch.Tensor,
     return acc, model.loss(params, test_x[:n], test_y[:n], w)
 
 
-def probe_s_max(policy: Policy, rounds: int) -> int:
-    """Largest batch size the policy can plan over the whole horizon, so
-    per-client minibatches can be padded to one fixed width."""
+def probe_s_max(policy: Policy, rounds: int, *, view=None) -> int:
+    """Largest batch size the policy can plan over the whole horizon
+    (against ``view`` when given), so per-client minibatches can be padded
+    to one fixed width. A schedule is probed at every round's deadline (a
+    re-planned tail need not be monotone); fixed-deadline policies plan
+    the same batch every round and are probed at both ends."""
+    cfg = view if view is not None else policy.cfg
     sch = getattr(policy, "schedule", None)
     R = max(int(rounds), 1)
     if sch is not None and len(np.asarray(sch.T)) >= R:
-        return int(sch.batch_sizes(policy.cfg)[:R].max())
+        return int(sch.batch_sizes(cfg)[:R].max())
     draws = Draws(0)
-    plans = [policy.round(draws, t) for t in (0, max(rounds - 1, 0))]
+    plans = [policy.round(draws, t, view=view)
+             for t in (0, max(rounds - 1, 0))]
     return int(max(float(torch.max(pl.batch_sizes)) for pl in plans))
 
 
 @dataclasses.dataclass
 class Cohort:
     """One round's stacked client data: ``x`` (U, n_pad, ...), ``y``
-    (U, n_pad), ``counts`` (U,) valid samples per client."""
+    (U, n_pad), ``counts`` (U,) valid samples per client, on the run's
+    device. ``view`` is the AnalysisConfig the policy plans this round
+    against (None: its static config), ``available`` the reachable-device
+    count (None outside fleet runs), ``regions`` the clients' edge-region
+    ids ((U,) int32 from the population draw, read by the hierarchical
+    backend; None: its contiguous split)."""
 
     x: Any
     y: Any
     counts: Any
+    view: Any = None
+    available: Optional[int] = None
+    regions: Optional[np.ndarray] = None
 
     @property
     def size(self) -> int:
@@ -241,8 +274,11 @@ class RoundContext:
     of the straggler draw; ``layer_s`` the mean per-layer backprop time
     ``S_u / P_u``; ``B`` the comm/setup overhead — all over the active
     (unpadded) cohort rows. ``regions`` holds the clients' edge-region ids
-    (None until fleets are ported: the hierarchical backend then splits the
-    cohort contiguously).
+    from the population draw (None: the hierarchical backend splits the
+    cohort contiguously); ``available`` the reachable count (fleet runs).
+    ``mask`` is the planner's host copy of the padded (U_pad, L)
+    contribution mask, so a backend that decides on the host (the buffered
+    backend's carry ring) never reads the device's copy back.
     """
 
     t: int
@@ -253,13 +289,21 @@ class RoundContext:
     layer_s: np.ndarray    # (U_act,)
     B: np.ndarray          # (U_act,)
     regions: Any = None
+    available: Optional[int] = None
+    mask: Optional[np.ndarray] = None    # (U_pad, L) float32, host
 
 
 def _round_context(t: int, elapsed: float, plan: RoundPlan, cfg,
-                   U_act: int) -> RoundContext:
+                   U_act: int, *, U_pad: Optional[int] = None,
+                   regions=None, available=None) -> RoundContext:
     """Recover the straggler-model rates the plan was drawn under: every
     policy prices a client's layer clock as Exp(S_u / P_u) within the
-    deadline ``plan.elapsed``, so ``lam = P/S * max(T - B, 0)``."""
+    deadline ``plan.elapsed``, so ``lam = P/S * max(T - B, 0)``. ``cfg`` is
+    the view the policy planned against."""
+    mask = np.asarray(plan.mask, np.float32)              # host tensor
+    mask_h = np.zeros((max(int(U_pad or 0), U_act), mask.shape[1]),
+                      np.float32)
+    mask_h[:U_act] = mask[:U_act]
     T_d = float(plan.elapsed)
     P = np.asarray(cfg.P, np.float32)[:U_act]
     B = np.asarray(cfg.B_eff, np.float32)[:U_act]
@@ -270,24 +314,28 @@ def _round_context(t: int, elapsed: float, plan: RoundPlan, cfg,
     layer_s = S / np.maximum(P, 1e-9)
     return RoundContext(t=t, sim_start=float(elapsed),
                         sim_end=float(elapsed) + T_d, U_act=int(U_act),
-                        lam=lam, layer_s=layer_s, B=B)
+                        lam=lam, layer_s=layer_s, B=B, regions=regions,
+                        available=available, mask=mask_h)
 
 
 @dataclasses.dataclass
 class _Prepared:
     """One round from the sequential planner: what the dispatch needs, plus
     the planner's span timings to emit on the main thread. ``kind`` is
-    ``"round"`` (executable) or ``"stop"`` (the T_max check failed); the
-    reference's ``"skip"`` kind (an empty cohort) and its replan record
-    come with re-planning and fleets (ROADMAP.md item 1.11). The stacked
-    tensors are one slot of the prefetch double buffer, dropped by
-    :meth:`release` once the round's work is queued; ``ready`` is the CUDA
-    event recorded after a worker's gathers on its side stream."""
+    ``"round"`` (executable), ``"skip"`` (empty cohort) or ``"stop"`` (the
+    T_max check failed); ``replan`` is a re-solve's (event record, solver
+    steps). The stacked tensors are one slot of the prefetch double
+    buffer, dropped by :meth:`release` once the round's work is queued;
+    ``ready`` is the CUDA event recorded after a worker's gathers on its
+    side stream."""
 
     kind: str
     spans: list                        # [(phase, t0, dur_s, attrs)]
     t_start: float = 0.0               # the planner's wall window, for the
     t_end: float = 0.0                 # prefetch_overlap_s counter
+    replan: Optional[tuple] = None
+    available: Optional[int] = None
+    view_cfg: Any = None
     plan: Any = None
     xb: Any = None
     yb: Any = None
@@ -381,7 +429,8 @@ class RoundRuntime:
             test_x, test_y, seed: int = 0, eval_every: int = 1,
             on_round: Optional[Callable] = None,
             init_params: PyTree | None = None,
-            draws=None) -> tuple[PyTree, History]:
+            draws=None, replan=None, method: str = "",
+            verbose: bool = False) -> tuple[PyTree, History]:
         """Run up to ``rounds`` rounds, stopping before the round whose
         deadline would take the simulated clock past ``T_max``; returns
         ``(params, History)``. Accuracy and loss (:func:`eval_metrics` on
@@ -392,11 +441,30 @@ class RoundRuntime:
         ``hist`` converted so far. ``draws`` (default ``Draws(seed)``)
         supplies every random draw; ``init_params`` (default ``model.init``
         from the draws' generator) the starting params.
+
+        ``replan`` (None | trigger name | :class:`repro_torch.core.replan.
+        ReplanConfig`) enables online re-solving of the remaining-horizon
+        Problem 2: the trigger is evaluated before each round against the
+        source's reachable count, the re-solve warm-starts from the
+        incumbent schedule's tail, and each event is appended to
+        ``History.replans``. A round whose cohort is empty (``round_cohort``
+        returns None) never starts; its planned deadline is credited back
+        to the replanner (:meth:`repro_torch.core.replan.Replanner.
+        note_skip`), which forces a re-solve at the next executed round.
+        Sources may expose ``replan_view(t, budget_left, eta_tail)`` to
+        re-estimate the population view (the fleet source does) and
+        ``plan_rate_max`` to bound the re-solved batches. ``method`` names
+        the run in ``History``; ``verbose`` prints each eval and replan.
         """
         model, policy, backend, dev = (self.model, self.policy, self.backend,
                                        self.device)
         if policy.name == "heterofl" and model.width_masks is None:
             raise ValueError("model does not support HeteroFL width masks")
+        replan = make_replan(replan)
+        replanner = (Replanner(replan, policy, rounds, eta, s_max=s_max,
+                               rate_max=getattr(source, "plan_rate_max",
+                                                None), device=dev)
+                     if replan is not None and replan.active else None)
         tx = torch.as_tensor(test_x, device=dev)
         ty = torch.as_tensor(test_y, device=dev)
         draws = Draws(seed) if draws is None else draws
@@ -409,17 +477,17 @@ class RoundRuntime:
         prefetch = self.pipeline == "prefetch"
 
         tracer = self.tracer
-        hist = History(method=policy.name)
+        hist = History(method=method or policy.name)
         elapsed = 0.0
         wall_start = obs.now()
 
         # -- the sequential planner ---------------------------------------
-        # It reads host state only (the cohort source, the policy, the
-        # draws, the PLANNED clock: plan.elapsed is known before the round
-        # runs), never a result of a round, so prefetch can run it one
-        # round ahead and the trajectory stays bit-identical. Its clock
-        # mirrors `elapsed`: every planned round is executed and a "stop"
-        # halts both. The skip and replan arms come with ROADMAP.md 1.11.
+        # It reads host state only (the cohort source, the replanner, the
+        # policy, the draws, the PLANNED clock: plan.elapsed is known before
+        # the round runs), never a result of a round, so prefetch can run
+        # it one round ahead and the trajectory stays bit-identical. Its
+        # clock mirrors `elapsed`: every planned round is executed, skips
+        # spend nothing, and a "stop" halts both.
         planned_elapsed = 0.0
 
         def plan_round(t: int) -> _Prepared:
@@ -428,23 +496,50 @@ class RoundRuntime:
             t_start = t0 = obs.now()
             cohort = source.round_cohort(t)
             spans.append(("cohort", t0, obs.now() - t0, {}))
+            if cohort is None:
+                # nobody reachable: the round never starts and spends
+                # nothing; its planned deadline is credited back
+                if replanner is not None:
+                    replanner.note_skip(t)
+                return _Prepared(kind="skip", spans=spans, t_start=t_start,
+                                 t_end=obs.now())
+            rep = None
+            if replanner is not None:
+                reachable = (cohort.available if cohort.available is not None
+                             else source.cohort_size)
+                if replanner.should_replan(t, reachable):
+                    view = None
+                    budget_left = max(T_max - planned_elapsed, 1e-6)
+                    view_fn = getattr(source, "replan_view", None)
+                    if view_fn is not None:
+                        view = view_fn(t, budget_left, eta[t:rounds])
+                    t0 = obs.now()
+                    ev = replanner.replan(t, budget_left, reachable, view)
+                    spans.append(("replan", t0, obs.now() - t0,
+                                  {"reachable": int(reachable)}))
+                    rep = (ev.as_dict(), int(ev.steps))
             t0 = obs.now()
-            plan = policy.round(draws, t)
+            plan = policy.round(draws, t, view=cohort.view)
             spans.append(("plan", t0, obs.now() - t0, {}))
             if planned_elapsed + plan.elapsed > T_max * (1 + 1e-6):
-                return _Prepared(kind="stop", spans=spans,
+                return _Prepared(kind="stop", spans=spans, replan=rep,
                                  t_start=t_start, t_end=obs.now())
             t0 = obs.now()
             xb, yb, wb, mask, U_act = self._prepare(
                 cohort, plan, draws.batch_indices(t, cohort.size, s_max),
                 s_max, U_pad)
             spans.append(("stack", t0, obs.now() - t0, {}))
-            ctx = (_round_context(t, planned_elapsed, plan, policy.cfg, U_act)
+            view_cfg = cohort.view if cohort.view is not None else policy.cfg
+            ctx = (_round_context(t, planned_elapsed, plan, view_cfg, U_act,
+                                  U_pad=U_pad, regions=cohort.regions,
+                                  available=cohort.available)
                    if needs_ctx else None)
             planned_elapsed += plan.elapsed
             return _Prepared(kind="round", spans=spans, t_start=t_start,
-                             t_end=obs.now(), plan=plan, xb=xb, yb=yb, wb=wb,
-                             mask=mask, U_act=U_act, ctx=ctx,
+                             t_end=obs.now(), replan=rep,
+                             available=cohort.available, view_cfg=view_cfg,
+                             plan=plan, xb=xb, yb=yb, wb=wb, mask=mask,
+                             U_act=U_act, ctx=ctx,
                              h2d_bytes=obs.tree_bytes((xb, yb, wb, mask)))
 
         side = (torch.cuda.Stream(device=dev)
@@ -512,6 +607,18 @@ class RoundRuntime:
                     prep = plan_round(t)
                 for name, s0, dur, attrs in prep.spans:
                     tracer.span_record(name, s0, dur, **attrs)
+                if prep.replan is not None:
+                    rec, steps = prep.replan
+                    hist.replans.append(rec)
+                    tracer.event("replan", **rec)
+                    tracer.count("replan_solver_steps", steps)
+                    drain_evals()        # replan events report live state
+                    if verbose:
+                        print(obs.format_replan(hist.method, rec))
+                if prep.kind == "skip":
+                    # the next round is planned inline: nothing is pending
+                    tracer.count("rounds_skipped", 1)
+                    continue
                 if prep.kind == "stop":
                     break
                 hand_over(prep)
@@ -525,8 +632,9 @@ class RoundRuntime:
                                                U_pad)
                     tracer.span_record("stack", t0, obs.now() - t0,
                                        part="wmasks")
-                if prefetch and t + 1 < rounds:
-                    # plan round t+1 while round t runs
+                if prefetch and prep.replan is None and t + 1 < rounds:
+                    # plan round t+1 while round t runs; a replan round
+                    # forces the next plan inline
                     pending = pool.submit(plan_ahead, t + 1)
                 if prefetch and not warmed:
                     # one round and one eval on zero params before round 0
@@ -543,6 +651,7 @@ class RoundRuntime:
                     tracer.span_record("warm_up", t0, dur)
                     tracer.count("warm_up_s", round(dur, 6))
                     warmed = True
+                available = prep.available
                 dispatch_t0 = obs.now()
                 params = backend.run_round(params, *prep.stacked(), plan.p,
                                            float(eta[t]),
@@ -565,11 +674,13 @@ class RoundRuntime:
                     tracer.count("batch_elements_padded", U_pad * s_max)
                     tracer.gauge("cohort_size", U_act)
                     tracer.event("round", **obs.round_record(
-                        t=t, plan=plan, cfg=policy.cfg, L=model.L,
+                        t=t, plan=plan, cfg=prep.view_cfg, L=model.L,
                         U_act=U_act, U_pad=U_pad, s_max=s_max,
                         sim_total=elapsed,
                         wall_round_s=wall_now - wall_round0,
                         wall_total_s=wall_now - wall_start,
+                        available=available,
+                        carry=getattr(backend, "last_carry", None) or None,
                         regions=getattr(backend, "last_regions",
                                         None) or None))
                 if (t % eval_every == 0) or (t == rounds - 1):
@@ -582,16 +693,21 @@ class RoundRuntime:
                     hist.accuracy.append(acc)
                     hist.deadlines.append(float(plan.elapsed))
                     hist.train_loss.append(loss)
+                    if available is not None:
+                        hist.available.append(int(available))
                     pending_evals.append(len(hist.accuracy) - 1)
-                    if tracer.active:
+                    if tracer.active or verbose:
                         # the record is rendered from what History keeps:
                         # only this report boundary pays the conversion
                         drain_evals()
-                        tracer.event("eval", round=t + 1, available=None,
-                                     cohort=U_act, sim_total=elapsed,
-                                     T_deadline=float(plan.elapsed),
-                                     acc=hist.accuracy[-1],
-                                     loss=hist.train_loss[-1])
+                        rec = {"round": t + 1, "available": available,
+                               "cohort": U_act, "sim_total": elapsed,
+                               "T_deadline": float(plan.elapsed),
+                               "acc": hist.accuracy[-1],
+                               "loss": hist.train_loss[-1]}
+                        tracer.event("eval", **rec)
+                        if verbose:
+                            print(obs.format_eval(hist.method, rec))
                 if on_round is not None:
                     drain_evals()    # hooks read converted History
                     on_round(t, params, hist)

@@ -6,9 +6,11 @@ a :class:`repro_torch.fl.runtime.StaticCohortSource` and hands the loop to
 :class:`repro_torch.fl.runtime.RoundRuntime`. HOW each round executes is
 an :class:`repro_torch.fl.spec.ExecSpec` (``exec=``) selecting one of the
 :mod:`repro_torch.fl.backends` backends — ``dense`` (the default),
-``chunked``, ``shard_map``, ``temporal`` or ``hierarchical`` — numerically
-equivalent up to float summation order, under the ``serial`` or
-``prefetch`` round loop (bit-identical).
+``chunked``, ``shard_map``, ``temporal``, ``buffered`` or
+``hierarchical`` — numerically equivalent up to float summation order
+(``buffered`` with ``lam=0``; with ``lam>0`` it folds late work into
+later rounds), under the ``serial`` or ``prefetch`` round loop
+(bit-identical).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def run_federated(model: ModelAPI, policy: Policy, cfg: AnalysisConfig,
                   compression=None, agg_impl: str | None = None,
                   on_round=None, tracer=None,
                   init_params: PyTree | None = None, draws=None,
-                  device=None) -> tuple[PyTree, History]:
+                  replan=None, device=None) -> tuple[PyTree, History]:
     """Run up to R rounds at learning rates ``cfg.eta``, stopping when the
     simulated clock would exceed T_max. Client arrays are numpy arrays or
     tensors, moved to ``device`` (the card unless the caller passes
@@ -47,6 +49,8 @@ def run_federated(model: ModelAPI, policy: Policy, cfg: AnalysisConfig,
     :meth:`ExecSpec.resolve` and give bit-identical trajectories.
     ``tracer`` (:class:`repro_torch.obs.Tracer`) records phase spans,
     counters and the clock-model ledger into ``History.telemetry``.
+    ``replan`` (None | trigger name | :class:`repro_torch.core.replan.
+    ReplanConfig`) re-solves the remaining horizon mid-run (ADEL only).
     ``seed``, ``on_round``, ``draws`` and ``init_params`` are those of
     :meth:`RoundRuntime.run`."""
     dev = resolve_device(device)
@@ -60,4 +64,5 @@ def run_federated(model: ModelAPI, policy: Policy, cfg: AnalysisConfig,
     return runtime.run(source, rounds=cfg.R, T_max=cfg.T_max, eta=cfg.eta,
                        s_max=s_max, test_x=test_x, test_y=test_y, seed=seed,
                        eval_every=eval_every, on_round=on_round,
-                       init_params=init_params, draws=draws)
+                       init_params=init_params, draws=draws,
+                       replan=replan)

@@ -16,11 +16,10 @@ that is:
   combinations the selected backend ignores — or raises, under
   ``strict=True`` / ``REPRO_EXEC_STRICT=1``.
 
-The port's backends are ``dense``, ``chunked``, ``shard_map`` (over a
-``torch.distributed`` process group), ``temporal`` and ``hierarchical``,
-and ``pipeline`` is ``serial`` or ``prefetch``. The reference's
-``buffered`` backend raises ``NotImplementedError`` (ROADMAP.md item
-1.9). Both ``agg_impl`` values are kept so
+The backends are ``dense``, ``chunked``, ``shard_map`` (over a
+``torch.distributed`` process group), ``temporal``, ``buffered`` and
+``hierarchical``, and ``pipeline`` is ``serial`` or ``prefetch``. Both
+``agg_impl`` values are kept so
 a spec round-trips through :meth:`as_dict` and the CLI; in the port both
 route every fold through the hand-written grouped kernels on the card (and
 their plain versions on the CPU).
@@ -41,11 +40,10 @@ __all__ = ["BACKENDS", "AGG_IMPLS", "PIPELINES", "ExecSpec"]
 # dense: one vmap over the cohort; chunked: sequential chunk sums;
 # shard_map: each rank of a process group folds its slice, all_reduce sums
 # the partials; temporal: one client at a time into an f32 accumulator;
+# buffered: dense + a staleness-weighted delayed-gradient carry buffer;
 # hierarchical: per-edge-region partial aggregates + one global fold
-BACKENDS = ("dense", "chunked", "shard_map", "temporal", "hierarchical")
-
-# the reference's backend that waits for a later slice
-_LATER = {"buffered": "ROADMAP.md item 1.9: the buffered semi-async backend"}
+BACKENDS = ("dense", "chunked", "shard_map", "temporal", "buffered",
+            "hierarchical")
 
 AGG_IMPLS = ("jnp", "pallas")
 
@@ -74,8 +72,11 @@ class ExecSpec:
     (None: the default group if one is initialized, else one shard).
     ``pipeline`` is the round loop: ``serial``, or ``prefetch``, which plans
     round t+1 on a worker thread while round t runs. The staleness knobs
-    ``lam`` / ``max_age`` / ``buffer_cap`` belong to the buffered backend,
-    not ported yet.
+    drive the ``buffered`` backend: a straggler's unfinished layers are
+    banked and folded into a later round with weight ``lam ** tau``
+    (``tau`` = rounds of staleness); ``lam=0`` (default) is the dense
+    round, bit for bit. ``max_age`` drops banked work older than that many
+    rounds; ``buffer_cap`` bounds the carry ring (one slot a round).
     """
 
     backend: str = "dense"
@@ -97,10 +98,6 @@ class ExecSpec:
     def __post_init__(self):
         object.__setattr__(self, "compression",
                            make_compression(self.compression))
-        if self.backend in _LATER:
-            raise NotImplementedError(
-                f"backend={self.backend!r} is not ported yet "
-                f"({_LATER[self.backend]})")
         if self.backend not in BACKENDS and not hasattr(self.backend,
                                                         "run_round"):
             raise ValueError(f"unknown backend {self.backend!r}; "
@@ -161,8 +158,10 @@ class ExecSpec:
         if self.mesh is not None and self.backend != "shard_map":
             issues.append(f"mesh= is ignored by backend={self.backend!r} "
                           f"(shard_map only)")
-        if (self.lam != defaults.lam or self.max_age != defaults.max_age
-                or self.buffer_cap != defaults.buffer_cap):
+        if self.backend != "buffered" and (
+                self.lam != defaults.lam or
+                self.max_age != defaults.max_age or
+                self.buffer_cap != defaults.buffer_cap):
             issues.append(f"staleness knobs (lam={self.lam}, "
                           f"max_age={self.max_age}, "
                           f"buffer_cap={self.buffer_cap}) are ignored by "
@@ -223,14 +222,15 @@ class ExecSpec:
                             "port folds through its grouped kernels under "
                             "either")
         g.add_argument("--lam", type=float, default=None,
-                       help="buffered backend: staleness decay (not ported "
-                            "yet)")
+                       help="buffered backend: staleness decay of delayed "
+                            "gradients, w(tau) = lam**tau (0 = exact "
+                            "round-synchronous semantics)")
         g.add_argument("--max-age", type=int, default=None,
                        help="buffered backend: drop carried work older "
-                            "than this many rounds (not ported yet)")
+                            "than this many rounds")
         g.add_argument("--buffer-cap", type=int, default=None,
-                       help="buffered backend: carry ring-buffer slots (not "
-                            "ported yet)")
+                       help="buffered backend: carry ring-buffer slots "
+                            "(one per recent round)")
         g.add_argument("--pipeline", default=None, choices=list(PIPELINES),
                        help="round-loop pipelining: prefetch plans round "
                             "t+1 on a worker thread while round t runs")

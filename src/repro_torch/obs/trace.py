@@ -44,9 +44,9 @@ __all__ = ["now", "PHASES", "Sink", "MemorySink", "JsonlSink", "Span",
            "tree_bytes"]
 
 # canonical phase order of one federated round (timeline rendering order);
-# warm_up is the prefetch loop's; replan and checkpoint belong to parts of
-# the reference's round loop the port has not taken over yet (ROADMAP.md
-# items 1.11, 1.14) and keep their places
+# warm_up is the prefetch loop's; checkpoint belongs to the reference's
+# LM training loop, which the port has not taken over yet (ROADMAP.md item
+# 1.14), and keeps its place
 PHASES = ("warm_up", "cohort", "replan", "plan", "stack", "local_train",
           "aggregate", "eval", "checkpoint")
 

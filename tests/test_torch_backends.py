@@ -1,8 +1,8 @@
 """The port's execution backends (``repro_torch.fl.backends``) and
-``ExecSpec``: the ports of ``tests/test_backends.py``'s cases that do not
-touch ``buffered`` (``shard_map`` runs here as one shard; its multi-rank
-cases are in ``tests/test_torch_shard_map.py``), run on the port's own
-draws, plus one
+``ExecSpec``: the ports of ``tests/test_backends.py``'s cases
+(``shard_map`` runs here as one shard; its multi-rank cases are in
+``tests/test_torch_shard_map.py``; the buffered backend's own cases are in
+``tests/test_torch_buffered.py``), run on the port's own draws, plus one
 round of each backend against the REFERENCE's same backend on the same
 inputs, and the byte counters' totals against the reference's.
 
@@ -15,6 +15,7 @@ as ``tests/test_torch_round.py``; byte counters exactly equal (both
 packages count ``payload_bytes`` analytically).
 """
 import argparse
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +38,8 @@ from repro_torch.core.compression import compress_deltas, make_compression
 from repro_torch.core.scheduler import solve
 from repro_torch.core.types import AnalysisConfig
 from repro_torch.data.synthetic import make_image_dataset
-from repro_torch.fl.backends import (BACKENDS, ChunkedBackend, DenseBackend,
+from repro_torch.fl.backends import (BACKENDS, BufferedBackend,
+                                     ChunkedBackend, DenseBackend,
                                      ExecSpec, HierarchicalBackend,
                                      ShardMapBackend, TemporalBackend,
                                      make_backend)
@@ -151,19 +153,24 @@ def test_backend_registry_and_padding():
                         device="cpu").cohort_pad(10) == 10
     # no process group: one shard, the reference's one-device mesh
     assert make_backend("shard_map", model, device="cpu").cohort_pad(10) == 10
+    assert make_backend("buffered", model, device="cpu").cohort_pad(10) == 10
     for name, cls in [("dense", DenseBackend), ("chunked", ChunkedBackend),
                       ("shard_map", ShardMapBackend),
                       ("temporal", TemporalBackend),
+                      ("buffered", BufferedBackend),
                       ("hierarchical", HierarchicalBackend)]:
         assert isinstance(make_backend(name, model, device="cpu"), cls)
     bk = DenseBackend(model, device="cpu")
     assert make_backend(bk, model) is bk
     with pytest.raises(ValueError):
         make_backend("nope", model, device="cpu")
-    # the buffered backend still waits for its slice; shard_map and the
-    # prefetch pipeline build
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.9"):
-        make_backend("buffered", model, device="cpu")
+    # the buffered backend builds with its staleness knobs; it reads the
+    # round context only when it banks (lam > 0)
+    buf = make_backend("buffered", model, lam=0.25, max_age=2,
+                       device="cpu")
+    assert (buf.lam, buf.max_age, buf.buffer_cap) == (0.25, 2, 4)
+    assert buf.needs_ctx
+    assert not make_backend("buffered", model, device="cpu").needs_ctx
     assert ExecSpec(pipeline="prefetch").pipeline == "prefetch"
     assert make_backend(exec=ExecSpec(backend="shard_map",
                                       pipeline="prefetch"),
@@ -407,10 +414,17 @@ def test_execspec_cli_roundtrip():
                              base=ExecSpec(backend="chunked",
                                            chunk_size=4)) == \
         ExecSpec(backend="chunked", chunk_size=4)
-    with pytest.raises(SystemExit):        # not a port backend yet
-        ap.parse_args(["--backend", "buffered"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.9"):
-        ExecSpec.resolve(backend="buffered")
+    args = ap.parse_args(["--backend", "buffered", "--lam", "0.3",
+                          "--max-age", "2", "--buffer-cap", "3"])
+    spec = ExecSpec.from_cli(args)
+    assert spec.backend == "buffered" and spec.lam == 0.3
+    assert (spec.max_age, spec.buffer_cap) == (2, 3)
+    # the staleness knobs belong to the buffered backend: no warning there
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ExecSpec.resolve(backend="buffered", lam=0.5, strict=True)
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--backend", "nope"])
     assert ExecSpec.from_cli(ap.parse_args(
         ["--backend", "shard_map", "--pipeline", "prefetch"])) == \
         ExecSpec(backend="shard_map", pipeline="prefetch")

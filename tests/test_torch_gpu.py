@@ -486,6 +486,160 @@ def test_prefetch_matches_serial_on_card(cuda, backend):
                                                  tree_leaves(pp)))
 
 
+def _buffered_plans(model, n_rounds, U=4, S=6):
+    """Per round: CNN inputs, a mask with stragglers and its round context
+    on a clock of 1.2 a round (the later rounds see earlier arrivals)."""
+    from repro_torch.core.baselines import RoundPlan
+    from repro_torch.core.types import AnalysisConfig
+    from repro_torch.fl.runtime import _round_context
+    rng = np.random.default_rng(5)
+    cfg = AnalysisConfig.default(U=U, L=model.L, R=5, T_max=6.0, seed=0)
+    out = []
+    for t in range(n_rounds):
+        xb = torch.from_numpy(rng.standard_normal((U, S, 28, 28, 1)).astype(
+            np.float32))
+        yb = torch.from_numpy(rng.integers(0, 10, (U, S)))
+        wb = torch.full((U, S), 1.0 / S)
+        z = rng.integers(0, model.L + 1, U)
+        z[0] = model.L
+        mask = torch.from_numpy((z[:, None] >= (model.L - np.arange(
+            model.L))[None, :]).astype(np.float32))
+        p = torch.full((model.L,), 0.1)
+        plan = RoundPlan(mask=mask, p=p, batch_sizes=torch.full((U,), 4.0),
+                         elapsed=1.2, bias_correct=True)
+        out.append(((xb, yb, wb, mask, p),
+                    _round_context(t, 1.2 * t, plan, cfg, U)))
+    return out
+
+
+@pytest.mark.parametrize("comp", [None, "int8"])
+def test_buffered_round_launches_on_card(cuda, comp):
+    """Buffered CNN rounds on the card: one grouped fold launch for the
+    on-time fold plus one a carry slot folded that round (``last_carry``'s
+    staleness histogram has one entry a slot), no per-leaf launch; each
+    round within the dense round's tolerance of the same round on the CPU
+    (plain versions), both fed the CPU's params, cuDNN off."""
+    from repro_torch.fl.backends import make_backend
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_q8, adel_agg_q8_grouped)
+    from repro_torch.models.paper_models import make_cnn
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    model = make_cnn()
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda p: p + 0.05 * torch.randn(p.shape, generator=gen),
+                      model.init(gen, "cpu"))
+    bks = {dev: make_backend("buffered", model, lam=0.5, compression=comp,
+                             device=dev) for dev in ("cpu", "cuda")}
+    kernel = adel_agg_grouped if comp is None else adel_agg_q8_grouped
+    folded = 0
+    for arrays, ctx in _buffered_plans(model, 4):
+        outs = {}
+        for dev, bk in bks.items():
+            before = [k.launches for k in (kernel, adel_agg, adel_agg_q8)]
+            with torch.backends.cudnn.flags(enabled=False):
+                out = bk.run_round(tree_map(lambda a: a.to(dev), params),
+                                   *arrays, 0.5, bias_correct=True, ctx=ctx)
+            torch.cuda.synchronize()
+            done = [k.launches - b for k, b in
+                    zip((kernel, adel_agg, adel_agg_q8), before)]
+            expect = ([0, 0, 0] if dev == "cpu" else
+                      [1 + len(bk.last_carry["stale"]), 0, 0])
+            assert done == expect, (dev, done, bk.last_carry)
+            outs[dev] = [a.cpu() for a in tree_leaves(out)]
+        assert bks["cpu"].last_carry == bks["cuda"].last_carry
+        folded += len(bks["cuda"].last_carry["stale"])
+        # int8: a code on a rounding boundary may land one step apart
+        tol = 1e-5 if comp is None else 1e-3
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            assert _close(a, b, 1e-4, tol), (a - b).abs().max()
+        params = tree_unflatten(params, outs["cpu"])
+    assert folded > 0
+
+
+@pytest.mark.parametrize("comp", [None, "int8"])
+def test_buffered_slot_owns_its_payload_on_card(cuda, comp):
+    """A slot banked at round 0 and folded at round 2 on the card holds
+    exactly what it held at banking time (nothing the rounds in between
+    allocated or wrote reached it), and its fold equals the plain fold of
+    that copy within the kernel tolerance."""
+    from repro_torch.core.aggregation import aggregate_with_coeffs
+    from repro_torch.core.compression import aggregate_compressed
+    from repro_torch.fl.backends import apply_update, make_backend
+    from repro_torch.kernels.adel_agg import (adel_agg_grouped_plain,
+                                              adel_agg_q8_grouped_plain)
+    from repro_torch.models.paper_models import make_cnn
+    from repro_torch.tree import tree_leaves, tree_map
+    model = make_cnn()
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    bk = make_backend("buffered", model, lam=0.5, compression=comp,
+                      device=cuda)
+    seen, fold_slot = [], bk._fold_slot
+
+    def spy(p, slot, w):
+        out = fold_slot(p, slot, w)
+        seen.append((p, slot, w, out))
+        return out
+
+    bk._fold_slot = spy
+    copy0 = None
+    for t, (arrays, ctx) in enumerate(_buffered_plans(model, 3)):
+        if t == 1:
+            ctx.sim_end = ctx.sim_start + 1e-6       # nothing lands yet
+        if t == 2:
+            ctx.sim_start, ctx.sim_end = 50.0, 51.2  # everything has landed
+        params = bk.run_round(params, *arrays, 0.5, bias_correct=True,
+                              ctx=ctx)
+        if t == 0:
+            copy0 = tree_map(lambda a: a.clone(), bk._slots[0]["banked"])
+    torch.cuda.synchronize()
+    p_in, slot, w, out = next(s for s in seen if s[1]["round"] == 0)
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(slot["banked"]), tree_leaves(copy0)))
+    coeffs = (slot["c_late"] * torch.from_numpy(w)[:, None])
+    cpu = lambda tree: tree_map(lambda a: a.cpu() if torch.is_tensor(a)
+                                else a, tree)
+    ids = model.layer_ids(p_in)
+    if comp is None:
+        agg = aggregate_with_coeffs(cpu(copy0), cpu(ids), coeffs)
+    else:
+        agg = aggregate_compressed(cpu(copy0), cpu(p_in), cpu(ids), None,
+                                   None, cfg=bk.compression, coeffs=coeffs)
+    expect = apply_update(cpu(p_in), agg)
+    for a, b in zip(tree_leaves(out), tree_leaves(expect)):
+        assert _close(a.cpu(), b, 1e-5, 1e-6), (a.cpu() - b).abs().max()
+
+
+def test_hierarchical_fleet_round_launches_per_region(cuda):
+    """run_fleet on the card over a million-device parametric population
+    with four edge regions: one grouped fold launch a non-empty region a
+    round (the ledger's region census from the cohort's device ids), and
+    no other fold launch."""
+    from repro_torch import obs
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.fleet.engine import partition_fleet, run_fleet
+    from repro_torch.fleet.population import make_population
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_q8_grouped)
+    from repro_torch.models.paper_models import make_cnn
+    x, y, xt, yt = make_image_dataset("mnist", n_train=600, n_test=100)
+    data = partition_fleet(x, y, xt, yt, 64, alpha=0.5)
+    pop = make_population("parametric:longtail-mobile", size=1_000_000,
+                          availability="bernoulli",
+                          availability_kwargs=(("rate", 0.7),), regions=4)
+    counters = (adel_agg_grouped, adel_agg_q8_grouped, adel_agg)
+    before = [k.launches for k in counters]
+    sink = obs.MemorySink()
+    _, hist = run_fleet(make_cnn(), pop, data=data, rounds=3, cohort_size=16,
+                        solver_steps=100, device=cuda, tracer=obs.Tracer(sink),
+                        exec=ExecSpec(backend="hierarchical", regions=4))
+    rows = obs.ledger_rows(sink.records)
+    assert len(rows) == 3 and all(r["regions"] == 4 for r in rows)
+    done = [k.launches - b for k, b in zip(counters, before)]
+    assert done == [sum(r["regions"] for r in rows), 0, 0], done
+    assert all(np.isfinite(v) for v in hist.train_loss)
+
+
 # ---------------------------------------------------------------------------
 # the LM kernels: flash attention and the SSD chunk scan
 # ---------------------------------------------------------------------------

@@ -40,7 +40,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.transformer, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan, "
             "repro_torch.obs, repro_torch.obs.timeline, repro_torch.fl.spec, "
-            "repro_torch.fl.backends; "
+            "repro_torch.fl.backends, repro_torch.core.replan, "
+            "repro_torch.configs.base, repro_torch.fleet, "
+            "repro_torch.fleet.engine, repro_torch.fleet.scenarios, "
+            "repro_torch.fleet.population; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'")
@@ -73,7 +76,7 @@ def test_entry_points_default_to_the_card():
         DenseBackend(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         HierarchicalBackend(model, regions=2)
-    for backend in ("chunked", "temporal", "hierarchical"):
+    for backend in ("chunked", "temporal", "buffered", "hierarchical"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_backend(backend, model)
     policy = make_policy("salf", cfg, m=2.0)
@@ -86,6 +89,31 @@ def test_entry_points_default_to_the_card():
     # an explicit CPU request runs
     sch = solve(cfg, "adam", steps=2, device="cpu")
     assert np.isfinite(sch.objective)
+
+
+def test_fleet_entry_points_default_to_the_card(tmp_path):
+    _cardless()
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.fleet.engine import partition_fleet, run_fleet
+    from repro_torch.models.paper_models import make_mlp
+
+    x, y, xt, yt = make_image_dataset("mnist", n_train=60, n_test=20)
+    data = partition_fleet(x, y, xt, yt, 8, alpha=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fleet(make_mlp(), "uniform", data, rounds=1, cohort_size=4,
+                  method="salf")
+    # the scenarios command line runs on the card unless told otherwise
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.fleet.scenarios", "--run",
+           "datacenter-always-on", "--rounds", "1", "--quiet",
+           "--solver-steps", "2"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=300, cwd=tmp_path)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    proc = subprocess.run(cmd + ["--device", "cpu"], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=tmp_path,
+                          check=True)
+    assert "[datacenter-always-on] method=adel" in proc.stdout
 
 
 def test_kernel_wrappers_take_plain_path_only_on_cpu():

@@ -4,13 +4,14 @@ port of ``tests/test_pipeline.py``.
 The one-round lookahead speculates only on host-deterministic phases, so
 its trajectories must be BIT-identical to serial on every port backend:
 ``History.as_dict()`` equal and params equal under ``torch.equal``, with
-the chunked (3), shard_map (one shard), temporal and hierarchical (3
-regions) backends on their stateful paths. The pipeline counters
+the chunked (3), shard_map (one shard), temporal, buffered (``lam=0.5``:
+the carry ring banking and folding) and hierarchical (3 regions) backends
+on their stateful paths, and across a skipped round and the re-solve it
+forces (both plan the next round inline). The pipeline counters
 (``prefetch_rounds`` / ``prefetch_overlap_s`` / ``dispatch_wait_s`` /
 ``warm_up_s``) and the ``warm_up`` span land in the event stream under
 prefetch and not under serial; ``History`` holds plain floats once ``run``
-returns. The reference's skip, forced-replan and buffered cases wait for
-ROADMAP.md items 1.11 and 1.9.
+returns.
 """
 import argparse
 
@@ -18,13 +19,16 @@ import pytest
 import torch
 
 from repro_torch import obs
-from repro_torch.core.baselines import make_policy
+from repro_torch.core.baselines import RoundPlan, make_policy
+from repro_torch.core.replan import ReplanConfig
 from repro_torch.core.scheduler import solve
 from repro_torch.core.types import AnalysisConfig
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.fl.backends import make_backend
 from repro_torch.fl.partition import dirichlet_partition, stack_clients
-from repro_torch.fl.runtime import DeviceRatio, eval_metrics, evaluate
+from repro_torch.fl.runtime import (DeviceRatio, RoundRuntime,
+                                    StaticCohortSource, _round_context,
+                                    eval_metrics, evaluate)
 from repro_torch.fl.server import run_federated
 from repro_torch.fl.spec import ExecSpec
 from repro_torch.models.paper_models import make_mlp
@@ -34,13 +38,15 @@ R = 4
 U = 8
 
 # every port backend, with the knobs that exercise its stateful paths: the
-# chunked backend padding (8 -> 9), the hierarchical split actually
-# splitting (regions > 1, no population ids)
+# chunked backend padding (8 -> 9), the buffered carry ring banking
+# (lam > 0), the hierarchical split actually splitting (regions > 1, no
+# population ids)
 BACKEND_SPECS = [
     dict(backend="dense"),
     dict(backend="chunked", chunk_size=3),
     dict(backend="shard_map"),
     dict(backend="temporal"),
+    dict(backend="buffered", lam=0.5, max_age=3, buffer_cap=3),
     dict(backend="hierarchical", regions=3),
 ]
 
@@ -193,11 +199,16 @@ def test_warm_up_leaves_state_and_counters_as_found(setup, backend_kw):
     yb = torch.randint(0, 10, (Up, 4), generator=gen)
     wb = torch.full((Up, 4), 0.25)
     mask = torch.ones((Up, model.L))
+    mask[1:3, 0] = 0.0                   # stragglers: the ring banks
     p = torch.zeros(model.L)
+    plan = RoundPlan(mask=mask, p=p, batch_sizes=torch.full((Up,), 4.0),
+                     elapsed=1.0, bias_correct=True)
+    ctx = (_round_context(0, 0.0, plan, cfg, Up)
+           if getattr(bk, "needs_ctx", False) else None)
     bk.last_regions = {"regions": 9}    # what a previous round left
     found = dict(vars(bk))
     state = torch.random.get_rng_state()
-    assert bk.warm_up(params, xb, yb, wb, mask, p, 0.5) > 0
+    assert bk.warm_up(params, xb, yb, wb, mask, p, 0.5, ctx=ctx) > 0
     assert torch.equal(torch.random.get_rng_state(), state)
     assert sink.records == []
     assert vars(bk) == found
@@ -205,6 +216,37 @@ def test_warm_up_leaves_state_and_counters_as_found(setup, backend_kw):
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(params),
         tree_leaves(model.init(torch.Generator().manual_seed(0), "cpu"))))
+
+
+def test_prefetch_skip_and_forced_replan(setup):
+    """An empty-cohort round and the skip-forced re-solve at the next
+    executed round (both change the planning state) leave the prefetched
+    trajectory bit-identical: the loop plans the round after a skip or a
+    replan inline."""
+    model, cfg, data, schedule = setup
+    cx, cy, counts, x_te, y_te = data
+
+    class SkippySource(StaticCohortSource):
+        def round_cohort(self, t):
+            return None if t == 1 else super().round_cohort(t)
+
+    def run(pipeline):
+        policy = make_policy("adel", cfg, schedule=schedule, device="cpu")
+        runtime = RoundRuntime(model, policy, device="cpu",
+                               exec=ExecSpec(pipeline=pipeline))
+        return runtime.run(
+            SkippySource(cx, cy, counts, device="cpu"), rounds=cfg.R,
+            T_max=cfg.T_max, eta=cfg.eta, s_max=16, seed=0,
+            test_x=x_te, test_y=y_te,
+            replan=ReplanConfig(trigger="drift", drift_threshold=10.0,
+                                steps=80))
+
+    a, b = run("serial"), run("prefetch")
+    _assert_bit_identical(a, b)
+    # the scenario exercised both fallback paths
+    hist = a[1]
+    assert len(hist.replans) == 1 and hist.replans[0]["round"] == 2
+    assert hist.rounds == [1, 3, 4]
 
 
 def test_exec_spec_pipeline_validation_and_cli():

@@ -90,7 +90,28 @@
    ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
    prefill (kernels) against stepping the decode path (plain) over 1152
    tokens, past the 1024 window, at full width cut to 4 blocks in f32.
-11. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+11. Trains the LM on the card. Each LM kernel's ``autograd.Function``
+   (``FlashAttention`` in bf16 and f32, ``SSDScan`` in f32) at hymba-1.5b's
+   training block shape (8 rows of 256 tokens, the model's layout read
+   through strides): ``torch.func.grad`` of a loss through it against the
+   same loss through the plain version, once and under ``torch.func.vmap``
+   over 4 clients, one kernel launch a call either way. Then
+   ``run_training("hymba-1.5b", reduced=False, backend="temporal")``: all 32
+   blocks, f32 params, bf16 compute, U=4, 256-token rows, at most 8 a
+   client, 3 rounds, ADEL from ``solve(cfg, "adam", steps=600)``: finite
+   losses, changed params, wall a round, peak memory, the launches a round
+   (32 flash and 32 SSD scans a client forward and an eval forward, one
+   grouped fold a client, no other fold), and round 2 under
+   ``torch.profiler`` (device activity): the device time split into the
+   forward kernels, GEMMs, the log-softmax, the fold and the rest, and the
+   idle share; the plain backwards' device ms a round from the gradient
+   cases (a block's grad call less its kernel, device time by
+   ``torch.profiler``). Then dense against temporal at full width cut to
+   4 blocks in f32, one round each, uncompressed and int8: updates within
+   1e-4 of the update's max (int8: one code step, 1/127), one
+   ``adel_agg_grouped`` / ``adel_agg_q8_grouped`` launch a round on dense and
+   one a client on temporal, on the LM's stacked leaves.
+12. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
     line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -98,6 +119,7 @@ repository's ``src/repro_torch`` beside it; any failed phase exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -128,6 +150,54 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+# torch.profiler drops device records ("Out-of-range") at both edges of
+# its window on the H100 (scripts/probe_profiler.py): the first kernels
+# of a window (1 to 30, more as the process ages) and, when it stops right
+# after the work, the last ones (up to ~800 of a fleet run's, a grouped
+# fold among them). So every profile this script reads opens with
+# SPIN_BURST short spin kernels and a ~10 ms one, launched without a
+# synchronize so the card stays busy into the work (the losses fall on
+# them), and closes after the card has been idle for PROFILE_MARGIN_S;
+# ``device_kernels`` leaves the spin kernels out of every count and sum.
+# In that probe's runs this way no kernel of the work was lost.
+PROFILE_MARGIN_S = 0.5
+SPIN_BURST, SPIN_SHORT, SPIN_LONG = 200, 1_000, 20_000_000   # cycles
+
+
+def open_window(torch) -> None:
+    """The spin kernels a profile's window opens with."""
+    for _ in range(SPIN_BURST):
+        torch.cuda._sleep(SPIN_SHORT)
+    torch.cuda._sleep(SPIN_LONG)
+
+
+def close_window(torch) -> None:
+    """Wait for the card, then leave it idle for ``PROFILE_MARGIN_S``
+    before the window closes."""
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_MARGIN_S)
+
+
+@contextlib.contextmanager
+def device_profile(torch, cpu: bool = False):
+    """``torch.profiler`` of the device (and the host if ``cpu``) over the
+    body, the window opened and closed as above."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        open_window(torch)
+        yield prof
+        close_window(torch)
+
+
+def device_kernels(prof) -> list:
+    """A profile's device entries by kernel name, less the spin kernels its
+    window opened with."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
 
 
 def card_line() -> str:
@@ -558,7 +628,6 @@ def profile_rounds(torch, model, policy, cfg, data, comp) -> None:
     """Where a steady-state round's time goes: ``torch.profiler`` over the
     rounds between the first and the last (which evaluate), with payloads
     compressed by ``comp`` (None or "int8")."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl.server import run_federated
@@ -571,16 +640,18 @@ def profile_rounds(torch, model, policy, cfg, data, comp) -> None:
         torch.cuda.synchronize()
         if t == 0:
             prof.start()
+            open_window(torch)
+            torch.cuda.synchronize()
             window["t0"] = time.perf_counter()
         elif t == R - 2:
             window["t1"] = time.perf_counter()
+            close_window(torch)
             prof.stop()
 
     run_federated(model, policy, cfg, *data, seed=0, eval_every=R - 1,
                   compression=comp, on_round=on_round, device="cuda")
     wall_ms = 1e3 * (window["t1"] - window["t0"])
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     fold = [e for e in kernels if re.search(r"fold_\w*kernel", e.key)]
     fold_ms = sum(e.self_device_time_total for e in fold) / 1e3
@@ -741,11 +812,8 @@ def agreement(torch, inputs: dict, out, dense_out) -> float:
 
 def fold_launches(prof) -> dict:
     """Device launches of each fold kernel in a profile."""
-    from torch.autograd import DeviceType
     out = {"adel_agg_grouped": 0, "adel_agg_q8_grouped": 0, "per_leaf": 0}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_kernels(prof):
         if "fold_grouped_q8_kernel" in e.key:
             out["adel_agg_q8_grouped"] += e.count
         elif "fold_grouped_kernel" in e.key:
@@ -763,7 +831,6 @@ def vgg_backends(torch, vgg: dict) -> dict:
     batches and mask against the dense backend's. Returns each fold
     kernel's launches a round on each backend, as the profiler counted
     them."""
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl.spec import ExecSpec
     inputs = round_inputs(torch, vgg, vgg["policy"])
@@ -781,9 +848,8 @@ def vgg_backends(torch, vgg: dict) -> dict:
                   f"{tag} loss not finite")
             for k in counters.values():
                 k.launches = 0
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with device_profile(torch) as prof:
                 run_rounds(torch, vgg, R, exec=spec)
-                torch.cuda.synchronize()
             seen = fold_launches(prof)
             fired = {k: c.launches for k, c in counters.items()}
             ratio = agreement(torch, inputs,
@@ -934,9 +1000,8 @@ SPAWN_TIMEOUT_S = 420
 
 def nccl_kernels(prof) -> dict:
     """Device launches of each NCCL kernel in a profile, by name."""
-    from torch.autograd import DeviceType
-    return {e.key[:60]: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()}
+    return {e.key[:60]: e.count for e in device_kernels(prof)
+            if "nccl" in e.key.lower()}
 
 
 def vgg_shard_map_nccl(torch, vgg: dict) -> dict:
@@ -947,7 +1012,6 @@ def vgg_shard_map_nccl(torch, vgg: dict) -> dict:
     over 3 more the grouped fold launches (one a round, no other fold
     launch) and the NCCL kernels that ``torch.profiler`` counts. Returns
     each fold kernel's launches a round."""
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl.spec import ExecSpec
     from repro_torch.tree import tree_leaves
@@ -969,9 +1033,8 @@ def vgg_shard_map_nccl(torch, vgg: dict) -> dict:
               f"{tag} loss not finite")
         for k in counters.values():
             k.launches = 0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile(torch) as prof:
             run_rounds(torch, vgg, R, exec=spec)
-            torch.cuda.synchronize()
         seen = fold_launches(prof)
         fired = {k: c.launches for k, c in counters.items()}
         nccl = nccl_kernels(prof)
@@ -1102,7 +1165,6 @@ def idle_share(torch, vgg: dict, spec) -> tuple:
     """(wall ms, device-busy ms) a steady round (rounds 2 .. R-1 of
     ``PIPE_ROUNDS``, evaluating every round) from a CUDA-only
     ``torch.profiler`` trace between synchronized ``on_round`` calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     R = PIPE_ROUNDS
     prof = profile(activities=[ProfilerActivity.CUDA])
@@ -1112,14 +1174,16 @@ def idle_share(torch, vgg: dict, spec) -> tuple:
         torch.cuda.synchronize()
         if t == 0:
             prof.start()
+            open_window(torch)
+            torch.cuda.synchronize()
             window["t0"] = time.perf_counter()
         elif t == R - 2:
             window["t1"] = time.perf_counter()
+            close_window(torch)
             prof.stop()
 
     run_rounds(torch, vgg, R, exec=spec, eval_every=1, on_round=on_round)
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
     n = R - 2
     return 1e3 * (window["t1"] - window["t0"]) / n, busy / n
 
@@ -1380,9 +1444,10 @@ def vgg_buffered(torch, vgg: dict) -> dict:
         def start():
             prof["on"] = profile(activities=[ProfilerActivity.CUDA])
             prof["on"].start()
+            open_window(torch)
 
         def on_round_prof(t, params, hist):
-            torch.cuda.synchronize()
+            close_window(torch)
             prof["on"].stop()
             prof.setdefault("rows", []).append(
                 (fold_launches(prof["on"]), 1 + len(bk.last_carry["stale"])))
@@ -1390,7 +1455,7 @@ def vgg_buffered(torch, vgg: dict) -> dict:
 
         start()
         run_rounds(torch, vgg, R, backend=bk, on_round=on_round_prof)
-        prof["on"].stop()
+        prof["on"].stop()               # the window after the last round
         for t, (seen, n) in enumerate(prof["rows"]):
             want = {k: 0 for k in seen}
             want[kernel] = n
@@ -1431,7 +1496,6 @@ def vgg_fleet(torch, vgg: dict) -> dict:
     ``cohort`` span's host ms at both sizes. Returns the launches a round
     at 1,000,000 devices."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import obs
     from repro_torch.fl.spec import ExecSpec
@@ -1456,7 +1520,7 @@ def vgg_fleet(torch, vgg: dict) -> dict:
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile(torch) as prof:
             _, hist = run_fleet(
                 model, pop, data=data, rounds=FLEET_ROUNDS,
                 cohort_size=FLEET_COHORT,
@@ -1464,8 +1528,7 @@ def vgg_fleet(torch, vgg: dict) -> dict:
                 T_max=FLEET_ROUNDS * model.L * 0.85, eta0=0.05,
                 eta_decay=0.02, solver_steps=300, seed=0,
                 tracer=obs.Tracer(sink), device="cuda")
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - PROFILE_MARGIN_S
         rows = obs.ledger_rows(sink.records)
         seen = fold_launches(prof)
         fired = {k: c.launches for k, c in counters.items()}
@@ -1754,18 +1817,14 @@ def lm_kernel_cases(torch) -> list:
 def ssd_phases(torch, fn, calls: int = 5) -> dict:
     """Device time a call of each of the SSD scan's four kernels, from
     ``torch.profiler`` over ``calls`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
     out: dict = {}
-    for e in prof.key_averages():
+    for e in device_kernels(prof):
         found = re.search(r"ssd_scan_(cb|states|pass|outputs)", e.key)
-        if e.device_type == DeviceType.CUDA and found:
+        if found:
             out[found[1]] = (out.get(found[1], 0.0)
                              + e.self_device_time_total / 1e3 / calls)
     check(set(out) == {"cb", "states", "pass", "outputs"},
@@ -1805,8 +1864,6 @@ def build_report() -> None:
 def hymba_prefill(torch) -> dict:
     """The LM main path at full width and depth: hymba-1.5b's 32 blocks in
     bf16 over 2 x 4096 random prompt tokens through ``make_prefill_step``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1857,14 +1914,13 @@ def hymba_prefill(torch) -> dict:
           f" peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
           flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch, cpu=True) as prof:
+        torch.cuda.synchronize()          # the spin kernels, outside t0
         t0 = time.perf_counter()
         step(params, tokens)
         torch.cuda.synchronize()
         prof_wall = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     # "flash_fwd_kernel" matches both flash kernels (bf16: ..._tc);
     # "ssd_scan_" the four kernels of the three-phase SSD scan
@@ -1959,6 +2015,410 @@ def hymba_agree(torch) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# LM training: both LM kernels under autograd, the fold kernels on the LM's
+# stacked leaves
+# ---------------------------------------------------------------------------
+
+# (rtol, atol) of a Function's gradients against autograd through the plain
+# version on the same CUDA inputs, atol scaled by max(1, max |grad|): flash
+# f32 TOL["f32"]; flash bf16 twice TOL["bf16"] (both sides round the grads
+# to bf16, and the kernel's O, which the backward reads, may be one bf16 ulp
+# from the plain O); SSD f32 LM_TOL["ssd"] (the forward's own tolerance:
+# the kernel's y feeds the loss's nonlinear term)
+GRAD_TOL = {"f32": TOL["f32"], "bf16": tuple(2 * t for t in TOL["bf16"]),
+            "ssd": LM_TOL["ssd"]}
+# the training cell: hymba-1.5b at full width and depth, temporal backend
+LM_TRAIN = dict(U=4, seq=256, s_max_cap=8, rounds=3, tmax=12.0,
+                solver_steps=600, seed=0)
+# dense against temporal, f32 compute: of the update's max. Under int8 a
+# delta that differs in its last bits between the two layouts (another GEMM
+# shape, another summation order) can round to the next code: one step of
+# amax / 127 a client, so that round is held to U / 127
+LM_AGREE = {None: 1e-4, "int8": LM_TRAIN["U"] / 127}
+
+
+def lm_grad_cases(torch) -> list:
+    """Each LM kernel's Function against autograd through its plain version
+    at hymba-1.5b's training block shape, plain and under vmap over 4
+    clients; returns one row per case."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ops import gqa_flash
+    from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan, ssd_scan_plain
+
+    cfg = get_config("hymba-1.5b")
+    B, S = LM_TRAIN["s_max_cap"], LM_TRAIN["seq"]
+    H, KV, hd, win = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.window
+    Hs, P, N, Q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    def nonlinear(y, w):
+        y = y.float()
+        return (y * w).sum() + 0.5 * (y * y).sum()
+
+    rows = []
+    for dtype in ("bf16", "f32"):
+        tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        w = randn(B, S, H, hd)
+
+        def attn_loss(q, k, v):
+            return nonlinear(gqa_flash(q, k, v, causal=True, window=win), w)
+
+        def attn_plain(q, k, v):
+            o = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=True,
+                                      window=win).transpose(1, 2)
+            return nonlinear(o, w)
+
+        def attn_args(n):
+            lead = (n,) if n else ()
+            return tuple(randn(*lead, B, S, h, hd).to(tdt)
+                         for h in (H, KV, KV))
+
+        rows += grad_case(torch, "flash_attention", dtype, flash_attention,
+                          attn_loss, attn_plain, attn_args,
+                          f"B={B} S={S} H={H} KV={KV} hd={hd} window={win} "
+                          "(B,S,H,hd) views")
+    ws = randn(B, S, Hs, P)
+
+    def scan_loss(xdt, la, b, c):
+        return nonlinear(SSDScan.apply(xdt.transpose(1, 2),
+                                       la.transpose(1, 2), b.contiguous(),
+                                       c.contiguous(), Q).transpose(1, 2), ws)
+
+    def scan_plain(xdt, la, b, c):
+        return nonlinear(ssd_scan_plain(xdt.transpose(1, 2),
+                                        la.transpose(1, 2), b.contiguous(),
+                                        c.contiguous(),
+                                        chunk=Q).transpose(1, 2), ws)
+
+    def scan_args(n):
+        lead = (n,) if n else ()
+        la = -0.5 * torch.rand(lead + (B, S, Hs), generator=gen,
+                               device="cuda")
+        return (randn(*lead, B, S, Hs, P), la, randn(*lead, B, S, N,
+                                                     scale=0.3),
+                randn(*lead, B, S, N, scale=0.3))
+
+    rows += grad_case(torch, "ssd_scan", "ssd", ssd_scan, scan_loss,
+                      scan_plain, scan_args,
+                      f"B={B} S={S} heads={Hs} P={P} N={N} Q={Q} "
+                      "(B,S,H,P) views")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def grad_case(torch, kernel, dtype, counter, loss, plain, make_args,
+              shape) -> list:
+    """``torch.func.grad`` of ``loss`` (through a Function) against that of
+    ``plain`` on the same inputs, once and under vmap over 4 clients: the
+    grads within GRAD_TOL[dtype], one kernel launch a call."""
+    rows = []
+    for clients in (0, 4):
+        tag = f"vmap{clients}" if clients else "one"
+        args = make_args(clients)
+        argnums = tuple(range(len(args)))
+        fn = torch.func.grad(loss, argnums=argnums)
+        ref_fn = torch.func.grad(plain, argnums=argnums)
+        if clients:
+            fn, ref_fn = torch.func.vmap(fn), torch.func.vmap(ref_fn)
+        counter.launches = 0
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        ref = ref_fn(*args)
+        rtol, atol = GRAD_TOL[dtype]
+        err, ok = 0.0, True
+        for a, b in zip(got, ref):
+            a, b = a.float(), b.float()
+            scale = max(1.0, float(b.abs().max()))
+            d = (a - b).abs()
+            err = max(err, float(d.max()) / scale)
+            ok &= bool((d <= atol * scale + rtol * b.abs()).all())
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        ms = call_ms(torch, lambda: fn(*args), iters=3, warmup=1)
+        plain_ms = call_ms(torch, lambda: ref_fn(*args), iters=3, warmup=1)
+        grad_dev, kernel_dev = grad_device_ms(
+            torch, lambda: fn(*args),
+            "flash_fwd_kernel" if kernel == "flash_attention" else "ssd_scan_")
+        check(0 < kernel_dev < grad_dev,
+              f"{kernel} {dtype} {tag}: device ms of the grad call "
+              f"{grad_dev}, of its kernel {kernel_dev}")
+        print(f"[lm grad] {kernel:15s} {dtype:4s} {tag:5s} {shape} "
+              f"launches={launches} max_abs_err/max(1,max|grad|)={err:.3e} "
+              f"tol=rtol {rtol:g}/atol {atol:g}x max(1,max|grad|) "
+              f"grad_ms={ms:.3f} plain_grad_ms={plain_ms:.3f} device ms of "
+              f"the grad call={grad_dev:.4f}, its kernel={kernel_dev:.4f} "
+              f"{'ok' if ok and finite else 'FAIL'}", flush=True)
+        check(finite, f"{kernel} {dtype} {tag}: gradient not finite")
+        check(ok, f"{kernel} {dtype} {tag}: gradient disagrees with the "
+                  f"plain version's: {err}")
+        check(launches == 1, f"{kernel} {dtype} {tag}: {launches} launches "
+                             "for one call, not 1")
+        rows.append({"kernel": kernel, "dtype": dtype, "case": tag,
+                     "max_err": err, "grad_ms": ms, "plain_grad_ms": plain_ms,
+                     "backward_device_ms": grad_dev - kernel_dev})
+        del args, got, ref
+    return rows
+
+
+def grad_device_ms(torch, fn, kernel_key: str) -> tuple:
+    """(device ms of every kernel one call of ``fn()`` launches, device ms
+    of those whose name holds ``kernel_key``), from ``torch.profiler`` with
+    device activity only (the backward's kernels are launched from autograd's
+    device thread, outside any host range of the call), after one call
+    unprofiled."""
+    fn()
+    with device_profile(torch) as prof:
+        fn()
+    kernels = device_kernels(prof)
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.self_device_time_total for e in kernels
+                if kernel_key in e.key) / 1e3)
+
+
+def lm_counters() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            **fold_counters()}
+
+
+def device_split(prof) -> dict:
+    """A profile's device ms by kind of kernel (disjoint), and the launches
+    of the LM and fold kernels."""
+    kinds = {"flash_fwd": 0.0, "ssd_scan": 0.0, "fold": 0.0, "gemm": 0.0,
+             "log_softmax": 0.0, "other": 0.0}
+    counts = {"flash_fwd": 0, "ssd_scan": 0, "fold": 0}
+    for e in device_kernels(prof):
+        ms = e.self_device_time_total / 1e3
+        if "flash_fwd_kernel" in e.key:
+            kind = "flash_fwd"
+        elif "ssd_scan_" in e.key:
+            kind = "ssd_scan"
+        elif "fold_grouped" in e.key or re.search(r"\bfold_kernel", e.key):
+            kind = "fold"
+        elif re.search(r"gemm|nvjet|xmma|cutlass", e.key, re.I):
+            kind = "gemm"
+        elif "softmax" in e.key.lower():
+            kind = "log_softmax"
+        else:
+            kind = "other"
+        kinds[kind] += ms
+        if kind in counts:
+            counts[kind] += e.count
+    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in device_kernels(prof)), reverse=True)[:12]
+    return {"ms": kinds, "launches": counts, "top": top}
+
+
+def lm_training(torch, grad_rows: list) -> dict:
+    """``run_training`` on hymba-1.5b at full width and depth, temporal.
+    Round 2 is profiled on the device only (the host events of a vmapped
+    training round take minutes to read back); the plain backwards' device
+    ms a round come from ``grad_rows`` (a block's grad call less its
+    kernel, device time at this shape, for each of the round's client
+    forwards)."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.fl.tasks import make_lm_model
+    from repro_torch.launch.train import run_training
+    from repro_torch.tree import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("hymba-1.5b")
+    U, R = LM_TRAIN["U"], LM_TRAIN["rounds"]
+    counters = lm_counters()
+    profiled = 2
+
+    class RoundClock(obs.NullTracer):
+        """Times each round between the runtime's ``set_round`` calls (at
+        each round's start and after the last), synchronized, with the
+        wrappers' counts at both ends; round ``profiled`` runs under
+        ``torch.profiler``, whose start and stop fall outside its times."""
+
+        def __init__(self):
+            self.ends, self.starts, self.prof, self.done = [], [], None, None
+
+        def set_round(self, t):
+            torch.cuda.synchronize()
+            self.ends.append((time.perf_counter(),
+                              {k: c.launches for k, c in counters.items()}))
+            if self.prof is not None:
+                close_window(torch)
+                t0 = time.perf_counter()
+                self.prof.__exit__(None, None, None)
+                self.done, self.prof = self.prof, None
+                self.stop_s = time.perf_counter() - t0
+            if t == profiled:
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                open_window(torch)
+                torch.cuda.synchronize()
+            self.starts.append((time.perf_counter(),
+                                {k: c.launches for k, c in counters.items()}))
+
+    init = make_lm_model(cfg).init(torch.Generator().manual_seed(0), "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(init))
+    sums = [float(t.sum(dtype=torch.float64)) for t in tree_leaves(init)]
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    clock = RoundClock()
+    t0 = time.perf_counter()
+    params, hist = run_training(
+        "hymba-1.5b", reduced=False, backend="temporal", U=U,
+        seq=LM_TRAIN["seq"], s_max_cap=LM_TRAIN["s_max_cap"], rounds=R,
+        tmax=LM_TRAIN["tmax"], solver_steps=LM_TRAIN["solver_steps"],
+        seed=LM_TRAIN["seed"], eval_every=1, verbose=False, tracer=clock,
+        init_params=init, device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    del init
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    spans = list(zip(clock.starts, clock.ends[1:]))
+    walls = [1e3 * (b[0] - a[0]) for a, b in spans]
+    per_round = [{k: b[1][k] - a[1][k] for k in counters} for a, b in spans]
+    changed = sum(float(t.sum(dtype=torch.float64)) != v
+                  for t, v in zip(tree_leaves(params), sums))
+    finite = all(math.isfinite(v) for v in hist.train_loss + hist.accuracy)
+    print(f"[lm train] hymba-1.5b full width: L={cfg.L} d_model="
+          f"{cfg.d_model} params={n_params} (f32, compute {cfg.dtype}) "
+          f"backend=temporal U={U} seq={LM_TRAIN['seq']} s_max_cap="
+          f"{LM_TRAIN['s_max_cap']} rounds={hist.rounds} losses="
+          f"{[round(v, 6) for v in hist.train_loss]} token_acc="
+          f"{[round(v, 6) for v in hist.accuracy]} leaves_changed={changed}/"
+          f"{len(sums)} run_s={total_s:.3f} (solve and data included) "
+          f"round_wall_ms={[round(w, 3) for w in walls]} (round "
+          f"{profiled} profiled) peak_mem_gb={peak_gb:.2f}", flush=True)
+    for t, launch in enumerate(per_round, 1):
+        print(f"[lm train] round {t} launches "
+              + " ".join(f"{k}={v}" for k, v in launch.items()), flush=True)
+    check(len(hist.rounds) == R, f"trained {hist.rounds}, not {R} rounds")
+    check(finite, f"losses or accuracies not finite: {hist.train_loss}")
+    # a leaf whose layers drew no contributor in any round keeps its values
+    check(changed > 0, "no param leaf changed")
+    per_forward = cfg.L * (U + 1)       # U clients' forwards, one eval
+    for launch in per_round:
+        check(launch["flash_attention"] == per_forward
+              and launch["ssd_scan"] == per_forward,
+              f"LM kernel launches a round {launch}, not {per_forward} each "
+              f"({cfg.L} a forward, {U} clients and one eval)")
+        check(launch["adel_agg_grouped"] == U,
+              f"{launch['adel_agg_grouped']} grouped folds a round, not {U}")
+        others = {k: v for k, v in launch.items()
+                  if k not in ("flash_attention", "ssd_scan",
+                               "adel_agg_grouped")}
+        check(not any(others.values()), f"another fold ran: {others}")
+    t1 = time.perf_counter()
+    split = device_split(clock.done)
+    print(f"[lm train] profiler: stop {clock.stop_s:.3f} s, reading "
+          f"{time.perf_counter() - t1:.3f} s", flush=True)
+    busy = sum(split["ms"].values())
+    wall = walls[profiled - 1]
+    # the plain backwards a round: one per block a client forward (a grad
+    # call's device ms less its kernel's: the loss's few elementwise ops
+    # count as backward)
+    backward = {r["kernel"]: cfg.L * U * r["backward_device_ms"]
+                for r in grad_rows if r["case"] == "one"
+                and r["dtype"] in ("bf16", "ssd")}
+    print(f"[lm train] round {profiled} profile: wall_ms={wall:.3f} "
+          f"device_busy_ms={busy:.3f} idle_share={1 - busy / wall:.4f} "
+          "device ms by kind: " + " ".join(f"{k}={v:.3f}" for k, v in
+                                            split["ms"].items())
+          + f" share of busy: gemm={split['ms']['gemm'] / busy:.4f} "
+          f"log_softmax={split['ms']['log_softmax'] / busy:.4f} "
+          "plain backward device ms a round (a block's grad call less its "
+          f"kernel, device time, x {cfg.L * U}): " + " ".join(
+              f"{k}={v:.3f} ({v / busy:.4f} of busy)"
+              for k, v in backward.items())
+          + " kernel launches: " + " ".join(
+              f"{k}={v}" for k, v in split["launches"].items()), flush=True)
+    for ms, count, key in split["top"]:
+        print(f"[lm train]   {ms:9.3f} ms x{count:<6d} {key[:90]}", flush=True)
+    check(split["launches"]["flash_fwd"] == per_forward
+          and split["launches"]["fold"] == U
+          and split["launches"]["ssd_scan"] == 4 * per_forward,
+          f"profiled launches {split['launches']}: not {per_forward} flash, "
+          f"{4 * per_forward} SSD phase kernels, {U} folds")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches_per_round": per_round[-1], "walls_ms": walls,
+            "peak_gb": peak_gb, "split": split, "idle_share": 1 - busy / wall,
+            "plain_backward_ms": backward}
+
+
+def lm_dense_vs_temporal(torch) -> dict:
+    """One round of dense and of temporal from the same params, batches and
+    mask at full width cut to 4 blocks, f32 compute (TF32 off, so the
+    layouts differ only in summation order), uncompressed and int8."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.fl.backends import make_backend
+    from repro_torch.fl.spec import ExecSpec
+    from repro_torch.fl.tasks import make_lm_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), L=4, dtype="float32")
+    model = make_lm_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), "cuda")
+    U, b, seq = LM_TRAIN["U"], LM_TRAIN["s_max_cap"], LM_TRAIN["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    xb = torch.randint(0, min(2048, cfg.vocab), (U, b, seq + 1), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    yb = torch.zeros((U, b), dtype=torch.int32, device="cuda")
+    wb = torch.full((U, b), 1.0 / b, device="cuda")
+    mask = torch.ones((U, cfg.n_blocks_total), device="cuda")
+    mask[1, 0] = 0.0
+    mask[3, 2:] = 0.0
+    p = torch.full((cfg.n_blocks_total,), 0.1, device="cuda")
+    counters = fold_counters()
+    out = {}
+    for comp in (None, "int8"):
+        rounds = {}
+        for bk in ("dense", "temporal"):
+            for c in counters.values():
+                c.launches = 0
+            backend = make_backend(exec=ExecSpec(backend=bk, compression=comp),
+                                   model=model, device="cuda")
+            t0 = time.perf_counter()
+            rounds[bk] = backend.run_round(params, xb, yb, wb, mask, p, 0.5,
+                                           bias_correct=True)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            fired = {k: c.launches for k, c in counters.items()}
+            name = "adel_agg_grouped" if comp is None else "adel_agg_q8_grouped"
+            want = 1 if bk == "dense" else U
+            print(f"[lm backends] L=4 full width f32 {comp or 'none'} {bk}: "
+                  f"wall_ms={ms:.3f} launches "
+                  + " ".join(f"{k}={v}" for k, v in fired.items()), flush=True)
+            check(fired.pop(name) == want,
+                  f"{bk} {comp}: not {want} {name} launches")
+            check(not any(fired.values()), f"{bk} {comp}: another fold ran")
+            out[(comp or "none", bk)] = want
+        leaves = list(zip(tree_leaves(rounds["temporal"]),
+                          tree_leaves(rounds["dense"]), tree_leaves(params)))
+        upd = max(float((d - w).abs().max()) for _, d, w in leaves)
+        err = max(float((t - d).abs().max()) for t, d, _ in leaves) / upd
+        print(f"[lm backends] L=4 {comp or 'none'}: max|temporal - dense| / "
+              f"max|dense update| = {err:.3e} (tol {LM_AGREE[comp]:g}) "
+              f"max|update|={upd:.4e}", flush=True)
+        check(upd > 0, "the dense LM round did not move the params")
+        check(err <= LM_AGREE[comp],
+              f"temporal and dense disagree on the LM: {err}")
+        del rounds
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2016,6 +2476,9 @@ def main() -> int:
     launches.update(prefill["launches"])
     hymba_serve(torch)
     hymba_agree(torch)
+    grad_rows = lm_grad_cases(torch)
+    training = lm_training(torch, grad_rows)
+    lm_backends = lm_dense_vs_temporal(torch)
 
     replaces = {"adel_agg": "src/repro/kernels/adel_agg.py:34",
                 "adel_agg_q8": "src/repro/kernels/adel_agg.py:76"}
@@ -2042,6 +2505,12 @@ def main() -> int:
             "card": card})
     kernels[1]["per_leaf_ms"] = per_round["adel_agg_q8 per-leaf"]["ms"]
     kernels[0]["fleet_hierarchical_launches_by_round"] = fleet
+    kernels[0]["lm_training_launches_per_round"] = \
+        training["launches_per_round"]["adel_agg_grouped"]
+    kernels[0]["lm_launches_a_round_4_blocks"] = {
+        bk: lm_backends[("none", bk)] for bk in ("dense", "temporal")}
+    kernels[1]["lm_launches_a_round_4_blocks"] = {
+        bk: lm_backends[("int8", bk)] for bk in ("dense", "temporal")}
     lm_replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                    "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
     for name, main_case in (("flash_attention", ("hymba", "bf16")),
@@ -2058,6 +2527,12 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "shapes": f"one block of the hymba-1.5b prefill: {row['shape']}"
                       + (" bf16" if name == "flash_attention" else " f32"),
+            "lm_training_launches_per_round":
+                training["launches_per_round"][name],
+            "lm_training_plain_backward_ms_per_round":
+                training["plain_backward_ms"][name],
+            "grad_max_err": {f"{r['dtype']} {r['case']}": r["max_err"]
+                             for r in grad_rows if r["kernel"] == name},
             "card": card})
         if name == "flash_attention":
             yi = next(r for r in mine if (r["case"], r["dtype"]) == ("yi", "bf16"))

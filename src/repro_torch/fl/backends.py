@@ -302,6 +302,9 @@ class ExecutionBackend:
                                      bias_correct=bias_correct, wmasks=wm)
                 acc = part if acc is None else tree_map(torch.add, acc, part)
                 self._fence()
+            # the next slice's local update must not find this slice's
+            # deltas and partial still held (two param-sized pytrees)
+            del deltas, part
         with tracer.span("aggregate", backend=self.name,
                          **{label + "s": len(slices)}):
             out = self._finish(params, self._combine(acc), hetero)

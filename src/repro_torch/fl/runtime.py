@@ -426,16 +426,20 @@ class RoundRuntime:
 
     # ------------------------------------------------------------------
     def run(self, source, *, rounds: int, T_max: float, eta, s_max: int,
-            test_x, test_y, seed: int = 0, eval_every: int = 1,
+            test_x=None, test_y=None, seed: int = 0, eval_every: int = 1,
             on_round: Optional[Callable] = None,
             init_params: PyTree | None = None,
             draws=None, replan=None, method: str = "",
+            eval_fn: Optional[Callable] = None,
             verbose: bool = False) -> tuple[PyTree, History]:
         """Run up to ``rounds`` rounds, stopping before the round whose
         deadline would take the simulated clock past ``T_max``; returns
-        ``(params, History)``. Accuracy and loss (:func:`eval_metrics` on
-        ``test_x``/``test_y``) are recorded every ``eval_every`` rounds and
-        after the last, as Python floats by the time ``run`` returns.
+        ``(params, History)``. The eval metrics are recorded every
+        ``eval_every`` rounds and after the last, as Python floats by the
+        time ``run`` returns: ``eval_fn(params) -> (metric, loss)`` when
+        given (the task's eval, e.g. token accuracy and token CE for an LM:
+        :meth:`repro_torch.fl.tasks.Task.eval_fn`), else accuracy and loss
+        (:func:`eval_metrics`) on ``test_x``/``test_y``.
 
         ``on_round(t, params, hist)`` runs after every executed round, with
         ``hist`` converted so far. ``draws`` (default ``Draws(seed)``)
@@ -465,8 +469,15 @@ class RoundRuntime:
                                rate_max=getattr(source, "plan_rate_max",
                                                 None), device=dev)
                      if replan is not None and replan.active else None)
-        tx = torch.as_tensor(test_x, device=dev)
-        ty = torch.as_tensor(test_y, device=dev)
+        if eval_fn is None:
+            if test_x is None or test_y is None:
+                raise ValueError("run() needs either eval_fn or "
+                                 "test_x/test_y")
+            tx = torch.as_tensor(test_x, device=dev)
+            ty = torch.as_tensor(test_y, device=dev)
+
+            def eval_fn(p):
+                return eval_metrics(model, p, tx, ty)
         draws = Draws(seed) if draws is None else draws
         params = (model.init(draws.gen, dev) if init_params is None else
                   init_params)
@@ -644,8 +655,7 @@ class RoundRuntime:
                                     float(eta[t]),
                                     bias_correct=bool(plan.bias_correct),
                                     wmasks=wmasks, ctx=prep.ctx)
-                    eval_metrics(model, tree_map(torch.zeros_like, params),
-                                 tx, ty)
+                    eval_fn(tree_map(torch.zeros_like, params))
                     sync(dev)
                     dur = obs.now() - t0
                     tracer.span_record("warm_up", t0, dur)
@@ -685,7 +695,7 @@ class RoundRuntime:
                                         None) or None))
                 if (t % eval_every == 0) or (t == rounds - 1):
                     with tracer.span("eval"):
-                        acc, loss = eval_metrics(model, params, tx, ty)
+                        acc, loss = eval_fn(params)
                         if tracer.active:
                             sync(dev)
                     hist.times.append(elapsed)

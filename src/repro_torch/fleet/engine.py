@@ -238,7 +238,7 @@ def run_fleet(model: ModelAPI, population: Union[Population, Fleet, str,
               replan=None, donate: Optional[bool] = None,
               compression=None, agg_impl: Optional[str] = None,
               tracer=None, init_params=None, draws=None,
-              device=None) -> tuple:
+              eval_metrics=None, device=None) -> tuple:
     """Run up to ``rounds`` federated rounds against a simulated population
     on ``device`` (the card unless the caller passes another).
 
@@ -269,7 +269,11 @@ def run_fleet(model: ModelAPI, population: Union[Population, Fleet, str,
     availability-aware online re-solving (``method="adel"`` only).
     ``tracer`` records telemetry into ``History.telemetry``. ``draws`` and
     ``init_params`` are the draw seam of :meth:`RoundRuntime.run` (tests
-    replay the reference's draws through them).
+    replay the reference's draws through them). ``eval_metrics``
+    (``(model, params, test_x, test_y) -> (metric, loss)``, default the
+    classification :func:`repro_torch.fl.runtime.eval_metrics`) swaps in
+    the task's eval, e.g. :func:`repro_torch.fl.tasks.lm_eval_metrics`
+    with :func:`repro_torch.fl.tasks.lm_fleet_data`.
     """
     if fleet is not None:
         if population is not None:
@@ -335,8 +339,16 @@ def run_fleet(model: ModelAPI, population: Union[Population, Fleet, str,
                                cohort_size=cohort_size,
                                strategy=cohort_strategy, seed=seed,
                                device=dev)
+    eval_fn = None
+    if eval_metrics is not None:
+        tx = torch.as_tensor(data.x_test, device=dev)
+        ty = torch.as_tensor(data.y_test, device=dev)
+
+        def eval_fn(params):
+            return eval_metrics(model, params, tx, ty)
     return runtime.run(source, rounds=rounds, T_max=T_max, eta=ref.eta,
                        s_max=s_max, test_x=data.x_test, test_y=data.y_test,
                        seed=seed, eval_every=eval_every, verbose=verbose,
                        method=f"fleet-{policy.name}", replan=replan,
-                       init_params=init_params, draws=draws)
+                       init_params=init_params, draws=draws,
+                       eval_fn=eval_fn)

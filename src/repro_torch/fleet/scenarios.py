@@ -14,8 +14,9 @@ on the card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.fleet.scenarios \
         --run datacenter-always-on --save out/fleet_scenarios.json
 
-The LM scenario (``lm-uniform-bernoulli``) raises ``NotImplementedError``:
-its task adapter waits for LM training (ROADMAP.md item 1.13.1).
+The LM scenario (``lm-uniform-bernoulli``) trains a reduced LM arch on
+synthetic token-stream shards with token-loss eval, through the task
+adapters of :mod:`repro_torch.fl.tasks`.
 """
 from __future__ import annotations
 
@@ -30,7 +31,9 @@ from repro_torch.configs.base import (CompressionConfig, ExecSpec,
                                       FleetConfig, ReplanConfig)
 from repro_torch.core.compression import make_compression
 from repro_torch.core.replan import TRIGGERS
+from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.fl.tasks import lm_eval_metrics, lm_fleet_data, make_lm_model
 from repro_torch.fleet.engine import partition_fleet, run_fleet
 from repro_torch.fleet.population import PopulationSpec
 from repro_torch.models.paper_models import make_cnn, make_mlp
@@ -184,10 +187,6 @@ def run_scenario(scn: Scenario, *, rounds: Optional[int] = None,
     census) to a JSONL file for ``python -m repro_torch.obs.timeline``;
     ``tracer`` passes an already-built :class:`repro_torch.obs.Tracer`
     instead (the caller keeps ownership — it is not closed here)."""
-    if scn.model == "lm":
-        raise NotImplementedError(
-            f"scenario {scn.name!r} trains an LM: its task adapter "
-            f"(fl/tasks.py) waits for LM training, ROADMAP.md item 1.13.1")
     fc = scn.fleet
     if fleet_size is not None:
         fc = dataclasses.replace(fc, size=fleet_size)
@@ -221,12 +220,22 @@ def run_scenario(scn: Scenario, *, rounds: Optional[int] = None,
     # 1024 shards, so million-device populations never materialize
     # per-device arrays; smaller populations keep one shard a device
     n_shards = min(pop.size, 1024)
-    x_tr, y_tr, x_te, y_te = make_image_dataset(
-        "mnist", n_train=scn.n_train, n_test=scn.n_test, seed=seed,
-        noise_std=1.0)
-    data = partition_fleet(x_tr, y_tr, x_te, y_te, n_shards,
-                           alpha=scn.alpha, seed=seed)
-    model = make_cnn() if scn.model == "cnn" else make_mlp()
+    eval_m = None
+    if scn.model == "lm":
+        # the task-adapter path: the same runtime trains a reduced LM arch
+        # on token-stream shards with token-loss eval (repro_torch.fl.tasks)
+        arch_cfg = get_config(scn.arch).reduced()
+        model = make_lm_model(arch_cfg)
+        data = lm_fleet_data(arch_cfg, n_shards, seq=32, rows_per_device=16,
+                             seed=seed)
+        eval_m = lm_eval_metrics
+    else:
+        x_tr, y_tr, x_te, y_te = make_image_dataset(
+            "mnist", n_train=scn.n_train, n_test=scn.n_test, seed=seed,
+            noise_std=1.0)
+        data = partition_fleet(x_tr, y_tr, x_te, y_te, n_shards,
+                               alpha=scn.alpha, seed=seed)
+        model = make_cnn() if scn.model == "cnn" else make_mlp()
 
     own_tracer = tracer is None and events is not None
     if own_tracer:
@@ -238,8 +247,8 @@ def run_scenario(scn: Scenario, *, rounds: Optional[int] = None,
             cohort_size=fc.cohort_size, cohort_strategy=fc.cohort_strategy,
             exec=spec, eta0=scn.eta0,
             solver_steps=solver_steps, eval_every=eval_every, seed=seed,
-            verbose=verbose, replan=fc.replan, tracer=tracer,
-            device=device)
+            verbose=verbose, replan=fc.replan, eval_metrics=eval_m,
+            tracer=tracer, device=device)
     finally:
         if own_tracer:
             tracer.close()

@@ -20,6 +20,13 @@ On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it computes :func:`flash_attention_plain`, which ``chip_smoke.py`` also
 holds the kernels against on the card. ``flash_attention.launches`` counts
 the launches.
+
+:class:`FlashAttention` is the wrapper under autograd and ``torch.func``:
+its forward is :func:`flash_attention` (the kernel on the card), its
+backward plain PyTorch (:func:`flash_attention_backward_plain`: P
+recomputed, the kernel's saved output O in ``rowsum(dO * O)``; the
+reference has no backward kernel either), and its ``vmap`` rule folds the
+vmapped dim into B, so one launch serves every client of a vmapped call.
 """
 from __future__ import annotations
 
@@ -31,8 +38,9 @@ import torch
 from repro_torch.kernels.build import load_library
 from repro_torch.models.attention import visible_mask
 
-__all__ = ["flash_attention", "flash_attention_plain", "kernel_strides",
-           "visible_mask", "visible_pairs"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_backward_plain", "FlashAttention",
+           "fold_vmapped", "kernel_strides", "visible_mask", "visible_pairs"]
 
 _LIB = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,17 +60,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int = 0) -> torch.Tensor:
     """Plain PyTorch GQA attention, the kernel's reference (after
     ``repro/kernels/ref.py:flash_attention_ref``): f32 throughout, masked
-    scores excluded, a row with no visible key 0, output in q's dtype."""
+    scores excluded, a row with no visible key 0, output in q's dtype.
+    Differentiable: nothing autograd saves is modified in place."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
     qr = q.reshape(B, KV, G, Sq, hd).to(torch.float32)
     s = torch.einsum("bkgsd,bktd->bkgst", qr, k.to(torch.float32)) * hd ** -0.5
     mask = visible_mask(Sq, Sk, causal, window, q.device)
-    s.masked_fill_(~mask, -1e30)
-    p = s.sub_(s.amax(-1, keepdim=True)).exp_().mul_(mask)
-    l = p.sum(-1, keepdim=True).clamp_min_(1e-30)
-    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32)).div_(l)
+    s = s.masked_fill(~mask, -1e30)
+    p = (s - s.amax(-1, keepdim=True)).exp() * mask
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32)) / l
     return out.reshape(B, H, Sq, hd).to(q.dtype)
 
 
@@ -151,3 +160,71 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward_plain(q, k, v, o, do, *, causal: bool = True,
+                                   window: int = 0) -> tuple:
+    """(dq, dk, dv) of :func:`flash_attention` in plain PyTorch, f32 inside,
+    each in its input's dtype: with P the softmax recomputed under the same
+    mask, ``dV = P^T dO``, ``dS = P * (dO V^T - rowsum(dO * O))`` and
+    ``dQ = dS K``, ``dK = dS^T Q``, both scaled by ``hd ** -0.5``; GQA sums
+    the G q heads of a KV head. ``o`` is the forward's output. Nothing is
+    modified in place, so it runs under ``torch.func.vmap``."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    f32, scale = torch.float32, hd ** -0.5
+
+    def heads(t):
+        return t.reshape(B, KV, G, Sq, hd).to(f32)
+
+    qr, dor, orr = heads(q), heads(do), heads(o)
+    kf, vf = k.to(f32), v.to(f32)
+    mask = visible_mask(Sq, Sk, causal, window, q.device)
+    s = torch.einsum("bkgsd,bktd->bkgst", qr, kf) * scale
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dor)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dor, vf)
+    ds = p * (dp - (dor * orr).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qr)
+    return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def fold_vmapped(t: torch.Tensor, dim, n: int) -> torch.Tensor:
+    """The LM kernels' ``vmap`` rules: move a vmapped dim of size ``n``
+    (None: broadcast) to the front and merge it with the next one,
+    (n, B, ...) -> (n * B, ...), a view where the strides allow it."""
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:])
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, causal, window)``: :func:`flash_attention`
+    with a plain backward and a ``vmap`` rule (one launch a vmapped call)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v, output)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*flash_attention_backward_plain(
+            q, k, v, o, do, causal=ctx.causal, window=ctx.window), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        n = info.batch_size
+        q, k, v = (fold_vmapped(t, d, n) for t, d in zip((q, k, v), in_dims))
+        out = FlashAttention.apply(q, k, v, causal, window)
+        return out.reshape(n, -1, *out.shape[1:]), 0

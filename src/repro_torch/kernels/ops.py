@@ -9,7 +9,12 @@
   fold kernel.
 
 Like the kernel wrappers they call, each launches its kernel for CUDA
-tensors and computes the plain version for CPU tensors.
+tensors and computes the plain version for CPU tensors. The two LM
+wrappers go through the kernels' ``autograd.Function`` s
+(:class:`~repro_torch.kernels.flash_attention.FlashAttention`,
+:class:`~repro_torch.kernels.ssd_scan.SSDScan`), so the model trains
+through them under autograd and ``torch.func`` (``vmap`` over clients: one
+launch a call).
 
 The fold:
 
@@ -31,8 +36,8 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.adel_agg import adel_agg_grouped, leaf_coeff_rows
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.kernels.ssd_scan import SSDScan
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 __all__ = ["gqa_flash", "ssd_chunked_kernel", "leaf_dims", "leaf_coeff_rows",
@@ -47,9 +52,9 @@ def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel reads the (B, H, S, hd) views through their strides and writes
     its output in q's layout, so on the card nothing is copied and the
     caller's ``reshape(B, S, H * hd)`` is a view."""
-    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=causal,
-                           window=window).transpose(1, 2)
+    return FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), bool(causal),
+                                int(window)).transpose(1, 2)
 
 
 def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -65,8 +70,8 @@ def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     f32 = torch.float32
     xdt = x * dt.to(f32)[..., None]        # (B, S, H, P) f32, x promoted
     la = (-A[None, None, :] * dt).to(f32)                     # (B, S, H)
-    y = ssd_scan(xdt.transpose(1, 2), la.transpose(1, 2),
-                 b.to(f32).contiguous(), c.to(f32).contiguous(), chunk=chunk)
+    y = SSDScan.apply(xdt.transpose(1, 2), la.transpose(1, 2),
+                      b.to(f32).contiguous(), c.to(f32).contiguous(), chunk)
     return y.transpose(1, 2).to(x.dtype)
 
 

@@ -24,6 +24,12 @@ it computes :func:`ssd_scan_plain` (the chunked SSD algorithm of
 ``models/ssm.py``, in f32), which ``chip_smoke.py`` also holds the kernels
 against on the card. ``ssd_scan.launches`` counts the calls that launched
 the three-phase scan (one per call, whatever its four launches).
+
+:class:`SSDScan` is the wrapper under autograd and ``torch.func``: its
+forward is :func:`ssd_scan` (the kernels on the card), its backward the
+vector-Jacobian product of :func:`ssd_scan_plain` (the reference has no
+backward kernel), and its ``vmap`` rule folds the vmapped dim into the
+groups, so one call serves every client of a vmapped call.
 """
 from __future__ import annotations
 
@@ -34,9 +40,10 @@ import math
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.flash_attention import fold_vmapped
 from repro_torch.models.ssm import chunk_scan
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "scan_strides"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "scan_strides", "SSDScan"]
 
 _LIB = "ssd_scan"
 _INVALID_VALUE = 1            # cudaErrorInvalidValue
@@ -145,3 +152,37 @@ def ssd_scan(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """``SSDScan.apply(xdt, la, b, c, chunk)``: :func:`ssd_scan` with the
+    plain version's vector-Jacobian product as backward and a ``vmap`` rule
+    (one three-phase scan a vmapped call)."""
+
+    @staticmethod
+    def forward(xdt, la, b, c, chunk):
+        return ssd_scan(xdt, la, b, c, chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        xdt, la, b, c, chunk = inputs
+        ctx.save_for_backward(xdt, la, b, c)
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx, dy):
+        chunk = ctx.chunk
+        _, vjp = torch.func.vjp(
+            lambda *a: ssd_scan_plain(*a, chunk=chunk), *ctx.saved_tensors)
+        return (*vjp(dy), None)
+
+    @staticmethod
+    def vmap(info, in_dims, xdt, la, b, c, chunk):
+        # client i's group g becomes group i * G + g; its heads keep it
+        n = info.batch_size
+        xdt, la = fold_vmapped(xdt, in_dims[0], n), fold_vmapped(
+            la, in_dims[1], n)
+        b, c = (fold_vmapped(t, d, n).contiguous()
+                for t, d in zip((b, c), in_dims[2:4]))
+        y = SSDScan.apply(xdt, la, b, c, chunk)
+        return y.reshape(n, -1, *y.shape[1:]), 0

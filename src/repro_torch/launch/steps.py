@@ -1,15 +1,134 @@
-"""Step functions of the LM path (port of ``repro.launch.steps``):
-:func:`make_prefill_step` and :func:`make_serve_step`. The FL training step
-waits for ROADMAP 1.13.1.
+"""Step functions of the LM path (port of ``repro.launch.steps``).
+
+``make_train_step`` is ONE FEDERATED ROUND of ADEL-FL for an LM: per-client
+gradients -> the Eq. 5 coefficients from the per-(client, layer) straggler
+mask -> the bias-corrected layer-wise fold (gradient form) -> the server
+SGD update ``w - eta * fold(c, g)``, in f32 and cast back to the params'
+dtype. Every fold goes through the hand-written grouped kernel
+(``adel_agg_grouped`` via :func:`repro_torch.kernels.ops.fold_tree`).
+
+Two client layouts:
+
+* ``temporal`` (default) — clients are grad-accumulation microbatches:
+  one client's gradient at a time (``torch.autograd.grad``), folded with
+  its coefficient row into an f32 accumulator, so peak memory is one
+  gradient pytree whatever U (one fold launch a client). ``remat=True``
+  recomputes each block in the backward (``torch.utils.checkpoint``).
+* ``spatial`` — ``torch.func.vmap(torch.func.grad)`` over the client axis
+  and one fold launch for the round. ``torch.func`` cannot take the
+  checkpoint's saved-tensor hooks, so ``remat=True`` raises here (ROADMAP
+  1.13.5).
+
+:func:`make_prefill_step` and :func:`make_serve_step` run the LM forward
+for inference (``torch.inference_mode``).
 """
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.aggregation import (aggregate_with_coeffs,
+                                          layer_coefficients)
 from repro_torch.models import transformer as tr
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+PyTree = Any
+
+__all__ = ["client_batch", "make_train_step", "make_client_grad",
+           "make_prefill_step", "make_serve_step"]
+
+_F32 = torch.float32
+
+
+def client_batch(cfg: ArchConfig, shape, U: int) -> int:
+    """Per-client batch b = global_batch / U."""
+    assert shape.global_batch % U == 0, (shape.global_batch, U)
+    return shape.global_batch // U
+
+
+def _client_grad(cfg: ArchConfig, params: PyTree, tok: torch.Tensor,
+                 lab: torch.Tensor, remat: bool) -> PyTree:
+    """One client's gradient of ``tr.loss_fn`` under autograd (so
+    ``remat`` works), f32, congruent with ``params``."""
+    leaves = [w.detach().requires_grad_() for w in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = tr.loss_fn(tree_unflatten(params, leaves), cfg, tok, lab,
+                          remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return tree_unflatten(params, [
+        torch.zeros(w.shape, dtype=_F32, device=w.device) if g is None
+        else g.to(_F32) for w, g in zip(leaves, grads)])
+
+
+def _fold_one(g: PyTree, ids: PyTree, c_row: torch.Tensor) -> PyTree:
+    """One client's f32 gradient weighted by its (L,) coefficient row: the
+    grouped fold at U = 1."""
+    return aggregate_with_coeffs(tree_map(lambda t: t[None], g), ids,
+                                 c_row[None])
+
+
+def _sgd(params: PyTree, agg: PyTree, eta) -> PyTree:
+    return tree_map(lambda w, g: (w.to(_F32) - eta * g.to(_F32)).to(w.dtype),
+                    params, agg)
+
+
+def make_train_step(cfg: ArchConfig, *, U: int, mode: str = "temporal",
+                    remat: bool = True):
+    """Returns ``train_step(params, tokens, labels, mask, p, eta)``.
+
+    tokens/labels: (U, b, S) int; mask: (U, L_total) f32 straggler
+    contribution mask; p: (L_total,) zero-contributor probabilities; eta:
+    the learning rate. Returns the updated params.
+    """
+    tr.check_supported(cfg)
+    if mode not in ("temporal", "spatial"):
+        raise ValueError(f"mode must be 'temporal' or 'spatial', not {mode!r}")
+    if mode == "spatial" and remat:
+        raise NotImplementedError(
+            "make_train_step(mode='spatial', remat=True): the client vmap is "
+            "torch.func, which cannot take torch.utils.checkpoint's "
+            "saved-tensor hooks (ROADMAP 1.13.5); use remat=False or "
+            "mode='temporal'")
+
+    def client_loss(params, tok, lab):
+        return tr.loss_fn(params, cfg, tok, lab)
+
+    def train_step(params, tokens, labels, mask, p, eta):
+        ids = tr.layer_ids(params, cfg)
+        coeffs = layer_coefficients(mask.to(_F32), p.to(_F32))  # (U, L)
+        if mode == "spatial":
+            grads = torch.func.vmap(torch.func.grad(client_loss),
+                                    in_dims=(None, 0, 0))(params, tokens,
+                                                          labels)
+            return _sgd(params, aggregate_with_coeffs(grads, ids, coeffs),
+                        eta)
+        agg = None
+        for u in range(U):
+            g = _client_grad(cfg, params, tokens[u], labels[u], remat)
+            part = _fold_one(g, ids, coeffs[u])
+            del g
+            agg = part if agg is None else tree_map(torch.add, agg, part)
+        return _sgd(params, agg, eta)
+
+    return train_step
+
+
+def make_client_grad(cfg: ArchConfig, *, remat: bool = True):
+    """The temporal step's per-client body as a function of its own:
+    ``client_grad(params, tok (b, S), lab (b, S), c_row (L_total,))`` ->
+    the client's f32 gradient weighted by its coefficient row (congruent
+    with params), so ``sum_u client_grad(..., c[u])`` is the round's
+    fold."""
+    tr.check_supported(cfg)
+
+    def client_grad(params, tok, lab, c_row):
+        ids = tr.layer_ids(params, cfg)
+        return _fold_one(_client_grad(cfg, params, tok, lab, remat), ids,
+                         c_row.to(_F32))
+
+    return client_grad
 
 
 def make_prefill_step(cfg: ArchConfig):

@@ -16,11 +16,13 @@ axis, so they cross between the packages unchanged
 (:func:`repro_torch.convert.params_from_jax`); the blocks run as a Python
 loop over that axis. Computation is cast to ``cfg.dtype`` with float32
 softmax, norms and SSM state; params stay in their stored dtype. On CUDA
-tensors the prefill's attention is the hand-written flash attention kernel
-(``kernels/ops.py:gqa_flash``) and its SSD scan the hand-written chunk-scan
-kernel (``ops.ssd_chunked_kernel``); on CPU tensors both compute their plain
-versions. The decode path is plain PyTorch, as in the reference, and
-updates its cache in place.
+tensors the full-sequence forward's attention is the hand-written flash
+attention kernel (``kernels/ops.py:gqa_flash``) and its SSD scan the
+hand-written chunk-scan kernel (``ops.ssd_chunked_kernel``); on CPU tensors
+both compute their plain versions. Both go through ``autograd.Function`` s
+with plain backwards, so :func:`loss_fn` trains through the kernels under
+autograd and ``torch.func`` (the FL backends' ``vmap(grad)``). The decode
+path is plain PyTorch, as in the reference, and updates its cache in place.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -39,8 +42,9 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-__all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step",
-           "layer_ids", "count_params", "Cache", "check_supported"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step", "layer_ids", "count_params", "Cache",
+           "check_supported", "token_nll"]
 
 _F32 = torch.float32
 
@@ -101,6 +105,9 @@ class _Init:
         self.gen, self.dtype, self.device = gen, dtype, device
 
     def normal(self, shape, scale, dtype=None) -> torch.Tensor:
+        if self.device.type == "meta":       # shapes only: draw nothing
+            return torch.empty(shape, dtype=dtype or self.dtype,
+                               device=self.device)
         x = torch.randn(shape, generator=self.gen, device=self.gen.device)
         return (scale * x).to(device=self.device, dtype=dtype or self.dtype)
 
@@ -178,10 +185,22 @@ def count_params(params: PyTree) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
 
-def _block(blocks: dict, l: int) -> dict:
-    """Block ``l``'s params: a view of every stacked leaf at index l."""
-    return {k: _block(v, l) if isinstance(v, dict) else v[l]
-            for k, v in blocks.items()}
+def _blocks(blocks: dict, L: int) -> list[dict]:
+    """The L blocks' params, each a dict of views: every stacked leaf is
+    unbound along its layer axis once. Its backward stacks the L layers'
+    grads in one op, where indexing layer l of the stack would scatter
+    each layer's grad into a zero tensor of the whole stack (L zero-filled
+    stacks and L adds a leaf, in time and in memory)."""
+    def unbind(tree):
+        return ({k: unbind(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.unbind(0))
+
+    def pick(tree, l):
+        return {k: pick(v, l) if isinstance(v, dict) else v[l]
+                for k, v in tree.items()}
+
+    views = unbind(blocks)
+    return [pick(views, l) for l in range(L)]
 
 
 def _head(params: PyTree, cfg: ArchConfig, cdt) -> torch.Tensor:
@@ -275,16 +294,53 @@ def _block_forward(p, cfg: ArchConfig, h, positions, cdt):
     return h + _swiglu(x2, p["mlp"], cdt)
 
 
-def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits (B, S, V) for a full sequence of tokens (B, S)."""
+def _under_torch_func() -> bool:
+    """True inside a ``torch.func`` transform (grad, vjp, vmap)."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
+            remat: bool = False) -> torch.Tensor:
+    """Logits (B, S, V) for a full sequence of tokens (B, S).
+
+    ``remat=True`` recomputes each block in the backward instead of keeping
+    its activations (the reference's ``jax.checkpoint`` of the block), via
+    ``torch.utils.checkpoint(use_reentrant=False)``. That works under
+    autograd; ``torch.func`` transforms cannot take its saved-tensor hooks,
+    so under one ``remat=True`` raises (ROADMAP 1.13.5)."""
     check_supported(cfg)
+    if remat and _under_torch_func():
+        raise NotImplementedError(
+            "remat=True under torch.func (vmap / grad) is not supported: "
+            "torch.utils.checkpoint's saved-tensor hooks do not compose with "
+            "torch.func transforms (ROADMAP 1.13.5)")
+    remat = remat and torch.is_grad_enabled()
     cdt = _dtype(cfg.dtype)
     h = params["embed"].to(cdt)[tokens]
     positions = torch.arange(h.shape[1], device=h.device)
-    for l in range(cfg.L):
-        h = _block_forward(_block(params["blocks"], l), cfg, h, positions, cdt)
+    for p in _blocks(params["blocks"], cfg.L):
+        if remat:
+            h = checkpoint(_block_forward, p, cfg, h, positions, cdt,
+                           use_reentrant=False)
+        else:
+            h = _block_forward(p, cfg, h, positions, cdt)
     h = _rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h @ _head(params, cfg, cdt)
+
+
+def loss_fn(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
+    """Mean next-token CE over (B, S) tokens and labels, the log-softmax in
+    f32 (the reference's ``loss_fn`` for the dense, hybrid and ssm
+    families, which have no MoE auxiliary)."""
+    logits = forward(params, cfg, tokens, remat=remat)
+    return token_nll(logits, labels).mean()
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position next-token CE: ``-log_softmax(logits)[label]`` in f32."""
+    logp = torch.log_softmax(logits.to(_F32), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
 
 
 def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -380,8 +436,7 @@ def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
     cdt = _dtype(cfg.dtype)
     pos = int(pos)
     h = params["embed"].to(cdt)[token][:, None, :]            # (B, 1, D)
-    for l in range(cfg.L):
-        p = _block(params["blocks"], l)
+    for l, p in enumerate(_blocks(params["blocks"], cfg.L)):
         x = _rms_norm(h, p["norm1"], cfg.norm_eps)
         if cfg.has_attention:
             a = _attn_decode(p["attn"], cfg, x, pos, cache.kv[0][l],

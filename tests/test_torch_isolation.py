@@ -43,7 +43,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.fl.backends, repro_torch.core.replan, "
             "repro_torch.configs.base, repro_torch.fleet, "
             "repro_torch.fleet.engine, repro_torch.fleet.scenarios, "
-            "repro_torch.fleet.population; "
+            "repro_torch.fleet.population, repro_torch.fl.tasks, "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.optim, repro_torch.checkpoint; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'")
@@ -150,6 +152,25 @@ def test_lm_entry_points_default_to_the_card():
     # an explicit CPU request runs
     params = tr.init_params(torch.Generator(), cfg, device="cpu")
     assert params["embed"].device.type == "cpu"
+
+
+def test_lm_training_entry_points_default_to_the_card(tmp_path):
+    _cardless()
+    from repro_torch.configs import get_config
+    from repro_torch.fl.tasks import make_lm_model
+    from repro_torch.launch.train import run_training
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training("qwen1.5-4b", rounds=1, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_lm_model(get_config("qwen1.5-4b").reduced()).init(
+            torch.Generator(), None)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           "--arch", "qwen1.5-4b", "--rounds", "1"],
+                          capture_output=True, text=True, env=env,
+                          timeout=300, cwd=tmp_path)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
 
 
 def test_lm_kernel_wrappers_take_plain_path_only_on_cpu():

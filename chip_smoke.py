@@ -111,7 +111,29 @@
    1e-4 of the update's max (int8: one code step, 1/127), one
    ``adel_agg_grouped`` / ``adel_agg_q8_grouped`` launch a round on dense and
    one a client on temporal, on the LM's stacked leaves.
-12. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+12. MoE and MLA. ``flash_attention`` at arctic-480b's GQA (56 q heads over
+   8 KV heads of 128, G = 7, B 2, S 4096, causal, bf16) is among step 4's
+   cases. deepseek-v2-lite-16b at full width and depth (27 blocks, 64
+   routed experts top-6, 2 shared, MLA kv_lora 512; bf16 params drawn on the
+   card): ``make_prefill_step`` over 2 x 4096 tokens (finite logits, no LM
+   kernel launched: MLA prefill is plain, as in the reference), tokens/s,
+   peak memory, and one prefill under ``torch.profiler`` with host stacks:
+   idle share and device ms by kind (expert GEMMs, dispatch/combine index
+   ops, router, MLA attention, other GEMMs, the rest); then greedy serving
+   through ``make_serve_step`` (batch 4, 64 + 32 tokens, f32 latent cache):
+   decode tokens/s. arctic-480b at full width cut to 2 of 35 blocks (bf16,
+   55.4 GB): the same prefill, with 2 flash launches by the wrapper and by
+   the profiler. ``[moe agree]``: the prefill at ``capacity_factor =
+   n_experts`` against stepping the dropless decode path over 2 x 64
+   tokens, arctic at 2 blocks in bf16 and deepseek at 2 blocks in f32.
+   ``[moe train]``: ``run_training("deepseek-v2-lite-16b", reduced=False,
+   layers=2)`` (1.59 B f32 params), temporal, U=4, 256-token rows, at most
+   8 a client, 3 rounds: finite losses, every leaf changed, one grouped fold
+   launch a client a round and no other kernel (wrappers and
+   ``torch.profiler``), wall a round, peak memory, idle share; and one
+   client's fold on these leaves (the (L, E*D*F) expert leaves among them)
+   against its plain version.
+13. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
     line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -181,12 +203,17 @@ def close_window(torch) -> None:
 
 
 @contextlib.contextmanager
-def device_profile(torch, cpu: bool = False):
-    """``torch.profiler`` of the device (and the host if ``cpu``) over the
-    body, the window opened and closed as above."""
+def device_profile(torch, cpu: bool = False, stack: bool = False):
+    """``torch.profiler`` of the device (and the host if ``cpu``, with each
+    host op's Python stack if ``stack``) over the body, the window opened
+    and closed as above."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
+    kw = {}
+    if stack:     # verbose: each host op also keeps its stack as a list
+        kw = dict(with_stack=True, experimental_config=torch._C._profiler.
+                  _ExperimentalConfig(verbose=True))
+    with profile(activities=acts, **kw) as prof:
         open_window(torch)
         yield prof
         close_window(torch)
@@ -1731,6 +1758,8 @@ def lm_kernel_cases(torch) -> list:
     flash_cases = [  # tag, B, H, KV, Sq, Sk, hd, causal, window, dtypes
         ("hymba", 2, 25, 5, 4096, 4096, 64, True, 1024, ("bf16", "f32")),
         ("yi", 2, 32, 4, 2048, 2048, 128, True, 0, ("bf16",)),
+        # arctic-480b's GQA: 56 q heads over 8 KV heads (G = 7)
+        ("arctic", 2, 56, 8, 4096, 4096, 128, True, 0, ("bf16",)),
         ("ragged", 1, 4, 2, 1000, 1000, 64, True, 100, ("bf16", "f32")),
         ("cross", 2, 8, 2, 512, 1000, 64, False, 0, ("bf16", "f32")),
         ("nokey", 1, 2, 1, 200, 40, 64, True, 16, ("bf16", "f32")),
@@ -2083,7 +2112,11 @@ def lm_grad_cases(torch) -> list:
         rows += grad_case(torch, "flash_attention", dtype, flash_attention,
                           attn_loss, attn_plain, attn_args,
                           f"B={B} S={S} H={H} KV={KV} hd={hd} window={win} "
-                          "(B,S,H,hd) views")
+                          "(B,S,H,hd) views",
+                          (*flash_cost(B, H, KV, S, S, hd, True, win,
+                                       2 if dtype == "bf16" else 4),
+                           BF16_FLOPS_PER_S if dtype == "bf16"
+                           else F32_FLOPS_PER_S))
     ws = randn(B, S, Hs, P)
 
     def scan_loss(xdt, la, b, c):
@@ -2108,16 +2141,18 @@ def lm_grad_cases(torch) -> list:
     rows += grad_case(torch, "ssd_scan", "ssd", ssd_scan, scan_loss,
                       scan_plain, scan_args,
                       f"B={B} S={S} heads={Hs} P={P} N={N} Q={Q} "
-                      "(B,S,H,P) views")
+                      "(B,S,H,P) views",
+                      (*ssd_cost(B, Hs, S, P, N, Q), F32_FLOPS_PER_S))
     torch.cuda.empty_cache()
     return rows
 
 
 def grad_case(torch, kernel, dtype, counter, loss, plain, make_args,
-              shape) -> list:
+              shape, cost) -> list:
     """``torch.func.grad`` of ``loss`` (through a Function) against that of
     ``plain`` on the same inputs, once and under vmap over 4 clients: the
-    grads within GRAD_TOL[dtype], one kernel launch a call."""
+    grads within GRAD_TOL[dtype], one kernel launch a call. ``cost`` is one
+    client's forward's (bytes, flops, peak rate), for its kernel's bound."""
     rows = []
     for clients in (0, 4):
         tag = f"vmap{clients}" if clients else "one"
@@ -2149,11 +2184,15 @@ def grad_case(torch, kernel, dtype, counter, loss, plain, make_args,
         check(0 < kernel_dev < grad_dev,
               f"{kernel} {dtype} {tag}: device ms of the grad call "
               f"{grad_dev}, of its kernel {kernel_dev}")
+        n = max(clients, 1)
+        bound = bound_ms(n * cost[0], n * cost[1], cost[2])
+        by = bound_by(n * cost[0], n * cost[1], cost[2])
         print(f"[lm grad] {kernel:15s} {dtype:4s} {tag:5s} {shape} "
               f"launches={launches} max_abs_err/max(1,max|grad|)={err:.3e} "
               f"tol=rtol {rtol:g}/atol {atol:g}x max(1,max|grad|) "
               f"grad_ms={ms:.3f} plain_grad_ms={plain_ms:.3f} device ms of "
               f"the grad call={grad_dev:.4f}, its kernel={kernel_dev:.4f} "
+              f"(bound {bound:.4f}, {by}) "
               f"{'ok' if ok and finite else 'FAIL'}", flush=True)
         check(finite, f"{kernel} {dtype} {tag}: gradient not finite")
         check(ok, f"{kernel} {dtype} {tag}: gradient disagrees with the "
@@ -2162,7 +2201,8 @@ def grad_case(torch, kernel, dtype, counter, loss, plain, make_args,
                              "for one call, not 1")
         rows.append({"kernel": kernel, "dtype": dtype, "case": tag,
                      "max_err": err, "grad_ms": ms, "plain_grad_ms": plain_ms,
-                     "backward_device_ms": grad_dev - kernel_dev})
+                     "backward_device_ms": grad_dev - kernel_dev,
+                     "kernel_device_ms": kernel_dev, "bound_ms": bound})
         del args, got, ref
     return rows
 
@@ -2217,31 +2257,16 @@ def device_split(prof) -> dict:
     return {"ms": kinds, "launches": counts, "top": top}
 
 
-def lm_training(torch, grad_rows: list) -> dict:
-    """``run_training`` on hymba-1.5b at full width and depth, temporal.
-    Round 2 is profiled on the device only (the host events of a vmapped
-    training round take minutes to read back); the plain backwards' device
-    ms a round come from ``grad_rows`` (a block's grad call less its
-    kernel, device time at this shape, for each of the round's client
-    forwards)."""
+def round_clock(torch, counters: dict, profiled: int):
+    """A tracer that times each round between the runtime's ``set_round``
+    calls (at each round's start and after the last), synchronized, with
+    the wrappers' counts at both ends; round ``profiled`` runs under
+    ``torch.profiler`` (device activity only), whose start and stop fall
+    outside its times."""
     from repro_torch import obs
-    from repro_torch.configs import get_config
-    from repro_torch.fl.tasks import make_lm_model
-    from repro_torch.launch.train import run_training
-    from repro_torch.tree import tree_leaves
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config("hymba-1.5b")
-    U, R = LM_TRAIN["U"], LM_TRAIN["rounds"]
-    counters = lm_counters()
-    profiled = 2
-
     class RoundClock(obs.NullTracer):
-        """Times each round between the runtime's ``set_round`` calls (at
-        each round's start and after the last), synchronized, with the
-        wrappers' counts at both ends; round ``profiled`` runs under
-        ``torch.profiler``, whose start and stop fall outside its times."""
-
         def __init__(self):
             self.ends, self.starts, self.prof, self.done = [], [], None, None
 
@@ -2263,6 +2288,26 @@ def lm_training(torch, grad_rows: list) -> dict:
             self.starts.append((time.perf_counter(),
                                 {k: c.launches for k, c in counters.items()}))
 
+    return RoundClock()
+
+
+def lm_training(torch, grad_rows: list) -> dict:
+    """``run_training`` on hymba-1.5b at full width and depth, temporal.
+    Round 2 is profiled on the device only (the host events of a vmapped
+    training round take minutes to read back); the plain backwards' device
+    ms a round come from ``grad_rows`` (a block's grad call less its
+    kernel, device time at this shape, for each of the round's client
+    forwards)."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.tasks import make_lm_model
+    from repro_torch.launch.train import run_training
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("hymba-1.5b")
+    U, R = LM_TRAIN["U"], LM_TRAIN["rounds"]
+    counters = lm_counters()
+    profiled = 2
+
     init = make_lm_model(cfg).init(torch.Generator().manual_seed(0), "cuda")
     n_params = sum(t.numel() for t in tree_leaves(init))
     sums = [float(t.sum(dtype=torch.float64)) for t in tree_leaves(init)]
@@ -2270,7 +2315,7 @@ def lm_training(torch, grad_rows: list) -> dict:
     for c in counters.values():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    clock = RoundClock()
+    clock = round_clock(torch, counters, profiled)
     t0 = time.perf_counter()
     params, hist = run_training(
         "hymba-1.5b", reduced=False, backend="temporal", U=U,
@@ -2419,6 +2464,483 @@ def lm_dense_vs_temporal(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE and MLA: deepseek-v2-lite-16b whole on the card, arctic-480b at full
+# width through flash attention
+# ---------------------------------------------------------------------------
+
+# the two MoE cells and their cuts: deepseek-v2-lite-16b at full width and
+# depth (27 blocks) for the prefill and serve; arctic-480b at full width cut
+# to 2 of 35 blocks (one block is 13.6 B params); the training cell is
+# deepseek cut to 2 of 27 blocks in f32, 3 rounds
+MOE_PREFILL = dict(B=2, S=4096)
+MOE_SERVE = dict(B=4, prompt=64, new=32)
+ARCTIC_BLOCKS = 2
+MOE_TRAIN = dict(LM_TRAIN, layers=2)
+# prefill at capacity_factor = n_experts against the decode path (dropless
+# in the reference and the port): 2 x 64 tokens, 2 blocks at full width.
+# deepseek in f32 (TF32 off): the last position's logits within AGREE_TOL.
+# arctic in bf16 (2 blocks are 55.4 GB, f32 would be 110.8 GB): bf16
+# rounds the two paths apart by about one ulp a value, and where a token's
+# router sits at a near-tie that moves it to another expert (O(1) on its
+# logits); so each position's logits within MOE_AGREE_BF16 * max(1, max
+# |logit|) at no fewer than MOE_AGREE_SHARE of the positions
+MOE_AGREE_S = 64
+MOE_AGREE_BF16 = 5e-2
+MOE_AGREE_SHARE = 0.9
+OP_KINDS = ("expert_gemm", "dispatch_combine", "router", "moe_other",
+            "mla_attention", "flash_attention", "gemm", "other")
+
+
+def own_kernels(e) -> list:
+    """The kernels the profiler hangs on host op ``e`` and on none of the
+    ops under it: it hangs some on a composite op and on the op that
+    implements it alike (``aten::softmax`` and ``aten::_softmax``)."""
+    below: dict = {}
+    todo = list(e.cpu_children)
+    while todo:
+        c = todo.pop()
+        for k in c.kernels:
+            below[(k.name, k.duration)] = below.get((k.name, k.duration),
+                                                    0) + 1
+        todo.extend(c.cpu_children)
+    own = []
+    for k in e.kernels:
+        if below.get((k.name, k.duration), 0):
+            below[(k.name, k.duration)] -= 1
+        else:
+            own.append(k)
+    return own
+
+
+def op_split(prof) -> dict:
+    """Device ms of a profile by kind, from the host op that launched each
+    kernel and the Python functions it ran under (the profiler's
+    ``with_stack`` records them as the op's ancestors and its stack): in
+    ``router_topk`` the router (``router``); in ``moe_ffn`` the experts'
+    batched products (``expert_gemm``), the index ops of dispatch and
+    combine (``dispatch_combine``: one-hot, cumsum, gather, index_put,
+    index_select, the sum over a token's assignments) and the elementwise
+    rest (``moe_other``: the SiLU gate, the router weighting); in
+    ``mla_prefill`` everything but its projections (``mla_attention``:
+    rope, the score and PV products, mask, softmax); the flash kernel
+    (``flash_attention``); elsewhere the GEMMs (``gemm``: projections,
+    shared and dense FFNs, the head) and the rest. Kernels count once, at
+    the innermost op that holds them (``own_kernels``), and not on a
+    Python call (``python_ms`` says how much the profiler hung there).
+    None (with a line saying what the profile held) when it recorded no
+    Python functions."""
+    from torch.autograd import DeviceType
+    ms = dict.fromkeys(OP_KINDS, 0.0)
+    python, launching, sample, python_ms = False, 0, "", 0.0
+    index = re.compile(r"index|cumsum|gather|scatter|cat|where|eq|sum|"
+                       r"zeros|fill|copy|expand|clone|sub|lt|full|arange")
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        kernels = [k for k in own_kernels(e) if "spin_kernel" not in k.name]
+        if not kernels:
+            continue
+        if ".py(" in e.name or e.name.startswith("<built-in"):
+            python_ms += sum(k.duration for k in kernels) / 1e3
+            continue
+        names, up = list(e.stack or ()), e
+        while up is not None:
+            names.append(up.name)
+            up = up.cpu_parent
+        chain = " ".join(names)
+        python |= ".py(" in chain
+        launching += 1
+        sample = sample or chain[:300]
+        gemm = e.name in ("aten::mm", "aten::addmm", "aten::bmm")
+        if "router_topk" in chain:
+            kind = "router"
+        elif "moe_ffn" in chain:
+            kind = ("expert_gemm" if e.name == "aten::bmm"
+                    else "dispatch_combine" if index.search(e.name)
+                    else "moe_other")
+        elif "mla_prefill" in chain:
+            kind = ("gemm" if gemm and "aten::einsum" not in chain
+                    else "mla_attention")
+        else:
+            kind = "gemm" if gemm else "other"
+        for k in kernels:
+            ms["flash_attention" if "flash_fwd" in k.name
+               else kind] += k.duration / 1e3
+    if not python:
+        print(f"[op split] no Python frames: {launching} host ops launched "
+              f"kernels; one op's ancestry: {sample!r}", flush=True)
+        return None
+    ms["python_ms"] = python_ms
+    return ms
+
+
+def prefill_phase(torch, tag: str, cfg, params) -> dict:
+    """``make_prefill_step`` over B x S random tokens: finite logits, wall
+    (median of 3 after a warm-up), tokens/s, peak memory, the LM kernels'
+    launches by their wrappers, then one prefill under ``torch.profiler``
+    (host and device): idle share, device ms by kind (``op_split``) and the
+    flash kernel's launches as the profiler counts them."""
+    from repro_torch.launch.steps import make_prefill_step
+    B, S = MOE_PREFILL["B"], MOE_PREFILL["S"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    step = make_prefill_step(cfg)
+    counters = lm_counters()
+    step(params, tokens)                                 # warm-up
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = step(params, tokens)
+    torch.cuda.synchronize()
+    walls = [1e3 * (time.perf_counter() - t0)]
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(logits.shape) == (B, cfg.padded_vocab),
+          f"{tag}: prefill logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: logits not finite")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(params, tokens)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = sorted(walls)[1]
+    print(f"[{tag} prefill] B={B} S={S} logits={tuple(logits.shape)} finite "
+          "launches " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + f" wall_ms={[round(w, 3) for w in walls]} median_wall_ms="
+          f"{wall:.3f} prefill_tok_per_s={B * S / wall * 1e3:.1f} "
+          f"peak_mem_gb={peak_gb:.2f}", flush=True)
+    with device_profile(torch, cpu=True, stack=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, tokens)
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash = sum(e.count for e in kernels if "flash_fwd_kernel" in e.key)
+    split = op_split(prof)
+    print(f"[{tag} profile] one prefill: wall_ms={prof_wall:.3f} "
+          f"device_busy_ms={busy:.3f} idle_share={1 - busy / prof_wall:.4f} "
+          f"flash_fwd launches={flash} device ms by kind: "
+          + ("not measured (no stacks)" if split is None
+             else " ".join(f"{k}={split[k]:.3f} ({split[k] / busy:.4f})"
+                           for k in OP_KINDS)
+             + f" sum={sum(split[k] for k in OP_KINDS):.3f} (kernels also "
+             f"hung on Python calls, not counted: {split['python_ms']:.3f})"),
+          flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[{tag} profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    check(busy > 0, f"{tag}: the profiler saw no device time")
+    del tokens, logits
+    return {"launches": launches, "wall_ms": wall, "peak_gb": peak_gb,
+            "tok_per_s": B * S / wall * 1e3, "busy_ms": busy,
+            "idle_share": 1 - busy / prof_wall, "flash_profiled": flash,
+            "split": split}
+
+
+def init_bf16(torch, tag: str, cfg, seed: int):
+    from repro_torch.models import transformer as tr
+    t0 = time.perf_counter()
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                            cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n = tr.count_params(params)
+    print(f"[{tag} prefill] init {n} params (bf16, {2 * n / 1e9:.2f} GB; "
+          f"the config's count without the final norm: {cfg.param_count()}) "
+          f"in {time.perf_counter() - t0:.3f} s; L={cfg.L} d_model="
+          f"{cfg.d_model} attention={cfg.attention} H={cfg.n_heads} KV="
+          f"{cfg.n_kv} experts={cfg.n_experts} top_k={cfg.top_k} shared="
+          f"{cfg.n_shared} expert_d_ff={cfg.expert_d_ff} dense_residual="
+          f"{int(cfg.dense_residual)} kv_lora={cfg.kv_lora} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    return params
+
+
+def deepseek_serve(torch, cfg, params) -> dict:
+    """Greedy serving through ``make_serve_step`` at full width and depth:
+    bf16 params, f32 latent cache, the prompt stepped through the decode
+    path, then ``new`` tokens (as ``launch/serve.py:serve`` does, which
+    draws f32 params: 64.8 GB)."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as tr
+    B, P, N = MOE_SERVE["B"], MOE_SERVE["prompt"], MOE_SERVE["new"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
+    cache = tr.init_cache(cfg, B, P + N + 1, dtype=torch.float32,
+                          device="cuda")
+    step = make_serve_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(P - 1):
+        _, cache = step(params, cache, prompts[:, i], i)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    tok, out = prompts[:, -1], []
+    t0 = time.perf_counter()
+    for j in range(N):
+        tok, cache = step(params, cache, tok, P - 1 + j)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    gen_tokens = torch.stack(out, dim=1).cpu()
+    tps = B * N / decode_s
+    with device_profile(torch) as prof:           # one more step, profiled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, cache, tok, P + N - 1)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+    launched = sum(e.count for e in device_kernels(prof))
+    print(f"[deepseek serve] one decode step profiled: wall_ms={step_ms:.3f} "
+          f"device_busy_ms={busy:.3f} idle_share={1 - busy / step_ms:.4f} "
+          f"kernels={launched}", flush=True)
+    print(f"[deepseek serve] batch={B} prompt_len={P} new_tokens={N} "
+          f"generated={tuple(gen_tokens.shape)} prompt_s={prompt_s:.3f} "
+          f"decode_s={decode_s:.3f} decode_tok_per_s={tps:.2f} ms_a_step="
+          f"{1e3 * decode_s / N:.3f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} (latent cache f32, "
+          f"MLA decode and the dropless MoE plain, as in the reference) "
+          f"sample={gen_tokens[0, :8].tolist()}", flush=True)
+    check(tuple(gen_tokens.shape) == (B, N), "serve: generated shape")
+    check(bool(((gen_tokens >= 0) & (gen_tokens < cfg.padded_vocab)).all()),
+          "serve: generated token out of range")
+    del cache
+    return {"tok_per_s": tps, "ms_a_step": 1e3 * decode_s / N,
+            "idle_share": 1 - busy / step_ms}
+
+
+def moe_agree(torch, tag: str, cfg, params, cache_dtype) -> float:
+    """The prefill at ``capacity_factor = n_experts`` (the kernels) against
+    stepping the decode path (dropless, plain) over the same 2 x 64 tokens:
+    every position's logits. Returns the largest error over max(1, max
+    |logit|) of the positions checked."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tr
+    B, S = 2, MOE_AGREE_S
+    dropless = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    with torch.inference_mode():
+        full = tr.forward(params, dropless, tokens).float()
+        cache = tr.init_cache(cfg, B, S, dtype=cache_dtype, device="cuda")
+        errs = []
+        for pos in range(S):
+            dec, cache = tr.decode_step(params, cfg, cache, tokens[:, pos],
+                                        pos)
+            scale = max(1.0, float(dec.abs().max()))
+            errs.append(float((full[:, pos] - dec).abs().max()) / scale)
+    torch.cuda.synchronize()
+    f32 = cfg.dtype == "float32"
+    tol = AGREE_TOL if f32 else MOE_AGREE_BF16
+    within = sum(e <= tol for e in errs) / S
+    print(f"[moe agree] {tag} L={cfg.L} {cfg.dtype} B={B} S={S} "
+          f"capacity_factor={dropless.capacity_factor:g} (prefill) vs "
+          f"dropless decode: last position err/max(1,max|logit|)="
+          f"{errs[-1]:.3e} max over positions={max(errs):.3e} positions "
+          f"within tol={within:.4f} tol={tol:g} "
+          + ("(last position)" if f32 else
+             f"(at least {MOE_AGREE_SHARE:g} of the positions)"), flush=True)
+    check(bool(torch.isfinite(full).all()), f"agree {tag}: logits not finite")
+    if f32:
+        check(errs[-1] <= tol, f"agree {tag}: prefill and decode disagree: "
+                                f"{errs[-1]}")
+    else:
+        check(within >= MOE_AGREE_SHARE,
+              f"agree {tag}: {within:.3f} of the positions within {tol}")
+    del cache, full
+    return errs[-1] if f32 else max(errs)
+
+
+def moe_models(torch) -> dict:
+    """deepseek-v2-lite-16b whole (prefill, profile, serve), then arctic-480b
+    at 2 blocks (prefill, profile, agree), then deepseek at 2 blocks in f32
+    (agree); each model's params are freed before the next is drawn."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    out = {}
+    cfg = get_config("deepseek-v2-lite-16b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_bf16(torch, "deepseek", cfg, 0)
+    out["deepseek_prefill"] = prefill_phase(torch, "deepseek", cfg, params)
+    launches = out["deepseek_prefill"]["launches"]
+    check(not any(launches.values()),
+          f"deepseek prefill launched an LM kernel: {launches} (MLA is plain)")
+    out["deepseek_serve"] = deepseek_serve(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("arctic-480b"), L=ARCTIC_BLOCKS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_bf16(torch, "arctic", cfg, 1)
+    pre = prefill_phase(torch, "arctic", cfg, params)
+    out["arctic_prefill"] = pre
+    check(pre["launches"]["flash_attention"] == cfg.L
+          and pre["flash_profiled"] == cfg.L,
+          f"arctic prefill: flash launches {pre['launches']} (wrapper), "
+          f"{pre['flash_profiled']} (profiler), not {cfg.L}")
+    others = {k: v for k, v in pre["launches"].items()
+              if k != "flash_attention"}
+    check(not any(others.values()), f"arctic prefill: another kernel {others}")
+    out["arctic_agree"] = moe_agree(torch, "arctic-480b", cfg, params,
+                                    torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), L=2,
+                              dtype="float32")
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(2),
+                            cfg, device="cuda")
+    out["deepseek_agree"] = moe_agree(torch, "deepseek-v2-lite-16b", cfg,
+                                      params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_fold_case(torch, params, ids) -> dict:
+    """One temporal client's fold on the deepseek training cell's leaves
+    (2 blocks at full width, f32: the (L, E*D*F) expert leaves among them):
+    ``adel_agg_grouped`` at U=1 against its plain version on random grads
+    with the leaves' shapes and layer ids, as ``_fold_one`` hands them over;
+    timed with the bytes bound."""
+    from repro_torch.kernels.adel_agg import (adel_agg_grouped,
+                                              adel_agg_grouped_plain)
+    from repro_torch.kernels.ops import leaf_dims
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    leaves = [torch.randn((1, *leaf_dims(t.shape, i)), generator=gen,
+                          device="cuda")
+              for t, i in zip(tree_leaves(params), tree_leaves(ids))]
+    id_list = tree_leaves(ids)
+    coeff = torch.rand((1, 2), generator=gen, device="cuda")
+    out = adel_agg_grouped(leaves, id_list, coeff)
+    ref = adel_agg_grouped_plain(leaves, id_list, coeff)
+    rtol, atol = TOL["f32"]
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    ok = all(bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+             for a, b in zip(out, ref))
+    n = sum(t.numel() for t in leaves)
+    nbytes = 2 * 4 * n + 4 * coeff.numel()
+    ms = call_ms(torch, lambda: adel_agg_grouped(leaves, id_list, coeff),
+                 iters=5, warmup=1)
+    plain_ms = call_ms(torch, lambda: adel_agg_grouped_plain(
+        leaves, id_list, coeff), iters=3, warmup=1)
+    biggest = max(leaves, key=lambda t: t.numel())
+    row = {"leaves": len(leaves), "values": n, "largest_leaf":
+           tuple(biggest.shape[1:]), "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes, 2 * n),
+           "bound_by": bound_by(nbytes, 2 * n)}
+    print(f"[moe train] one client's fold (U=1, f32): {row['leaves']} leaves, "
+          f"{n} values, largest (rows, F)={row['largest_leaf']} "
+          f"max_abs_err={err:.3e} tol=rtol {rtol:g}/atol {atol:g} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+          f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"the MoE cell's fold disagrees with plain: {err}")
+    del leaves, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_training(torch) -> dict:
+    """``run_training("deepseek-v2-lite-16b", reduced=False, layers=2)``:
+    full width cut to 2 of 27 blocks, f32 params, bf16 compute, temporal,
+    U=4, 256-token rows, at most 8 a client, 3 rounds, ADEL. Finite losses,
+    every leaf changed, one grouped fold a client a round and no other
+    kernel of the port (wrappers a round; round 2 under ``torch.profiler``,
+    device activity), wall a round, peak memory, idle share; then one
+    client's fold on these leaves against its plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.fl.tasks import make_lm_model
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              L=MOE_TRAIN["layers"])
+    U, R = MOE_TRAIN["U"], MOE_TRAIN["rounds"]
+    counters = lm_counters()
+    profiled = 2
+    init = make_lm_model(cfg).init(torch.Generator().manual_seed(0), "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(init))
+    sums = [float(t.sum(dtype=torch.float64)) for t in tree_leaves(init)]
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    clock = round_clock(torch, counters, profiled)
+    t0 = time.perf_counter()
+    params, hist = run_training(
+        "deepseek-v2-lite-16b", reduced=False, layers=MOE_TRAIN["layers"],
+        backend="temporal", U=U, seq=MOE_TRAIN["seq"],
+        s_max_cap=MOE_TRAIN["s_max_cap"], rounds=R, tmax=MOE_TRAIN["tmax"],
+        solver_steps=MOE_TRAIN["solver_steps"], seed=MOE_TRAIN["seed"],
+        eval_every=1, verbose=False, tracer=clock, init_params=init,
+        device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    del init
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    spans = list(zip(clock.starts, clock.ends[1:]))
+    walls = [1e3 * (b[0] - a[0]) for a, b in spans]
+    per_round = [{k: b[1][k] - a[1][k] for k in counters} for a, b in spans]
+    changed = sum(float(t.sum(dtype=torch.float64)) != v
+                  for t, v in zip(tree_leaves(params), sums))
+    finite = all(math.isfinite(v) for v in hist.train_loss + hist.accuracy)
+    print(f"[moe train] deepseek-v2-lite-16b full width, {cfg.L} of 27 "
+          f"blocks: params={n_params} (f32, {4 * n_params / 1e9:.2f} GB, "
+          f"compute {cfg.dtype}) backend=temporal U={U} seq="
+          f"{MOE_TRAIN['seq']} s_max_cap={MOE_TRAIN['s_max_cap']} rounds="
+          f"{hist.rounds} losses={[round(v, 6) for v in hist.train_loss]} "
+          f"token_acc={[round(v, 6) for v in hist.accuracy]} leaves_changed="
+          f"{changed}/{len(sums)} run_s={total_s:.3f} (solve and data "
+          f"included) round_wall_ms={[round(w, 3) for w in walls]} (round "
+          f"{profiled} profiled) peak_mem_gb={peak_gb:.2f}", flush=True)
+    for t, launch in enumerate(per_round, 1):
+        print(f"[moe train] round {t} launches "
+              + " ".join(f"{k}={v}" for k, v in launch.items()), flush=True)
+    check(len(hist.rounds) == R, f"trained {hist.rounds}, not {R} rounds")
+    check(finite, f"losses or accuracies not finite: {hist.train_loss}")
+    check(changed == len(sums), f"{len(sums) - changed} leaves unchanged")
+    for launch in per_round:
+        check(launch["adel_agg_grouped"] == U,
+              f"{launch['adel_agg_grouped']} grouped folds a round, not {U}")
+        others = {k: v for k, v in launch.items() if k != "adel_agg_grouped"}
+        check(not any(others.values()), f"another kernel ran: {others}")
+    split = device_split(clock.done)
+    busy = sum(split["ms"].values())
+    wall = walls[profiled - 1]
+    print(f"[moe train] round {profiled} profile: wall_ms={wall:.3f} "
+          f"device_busy_ms={busy:.3f} idle_share={1 - busy / wall:.4f} "
+          "device ms by kind: " + " ".join(f"{k}={v:.3f}" for k, v in
+                                            split["ms"].items())
+          + " kernel launches: " + " ".join(
+              f"{k}={v}" for k, v in split["launches"].items()), flush=True)
+    for ms, count, key in split["top"]:
+        print(f"[moe train]   {ms:9.3f} ms x{count:<6d} {key[:90]}",
+              flush=True)
+    check(split["launches"]["fold"] == U
+          and not split["launches"]["flash_fwd"]
+          and not split["launches"]["ssd_scan"],
+          f"profiled launches {split['launches']}: not {U} folds alone")
+    fold = moe_fold_case(torch, params, tr.layer_ids(params, cfg))
+    del params
+    torch.cuda.empty_cache()
+    return {"launches_per_round": per_round[-1], "walls_ms": walls,
+            "peak_gb": peak_gb, "idle_share": 1 - busy / wall,
+            "split": split["ms"], "fold": fold}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2479,6 +3001,8 @@ def main() -> int:
     grad_rows = lm_grad_cases(torch)
     training = lm_training(torch, grad_rows)
     lm_backends = lm_dense_vs_temporal(torch)
+    moe = moe_models(torch)
+    moe_train = moe_training(torch)
 
     replaces = {"adel_agg": "src/repro/kernels/adel_agg.py:34",
                 "adel_agg_q8": "src/repro/kernels/adel_agg.py:76"}
@@ -2511,6 +3035,9 @@ def main() -> int:
         bk: lm_backends[("none", bk)] for bk in ("dense", "temporal")}
     kernels[1]["lm_launches_a_round_4_blocks"] = {
         bk: lm_backends[("int8", bk)] for bk in ("dense", "temporal")}
+    kernels[0]["moe_training_launches_per_round"] = \
+        moe_train["launches_per_round"]["adel_agg_grouped"]
+    kernels[0]["moe_training_client_fold"] = moe_train["fold"]
     lm_replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:76",
                    "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
     for name, main_case in (("flash_attention", ("hymba", "bf16")),
@@ -2533,11 +3060,24 @@ def main() -> int:
                 training["plain_backward_ms"][name],
             "grad_max_err": {f"{r['dtype']} {r['case']}": r["max_err"]
                              for r in grad_rows if r["kernel"] == name},
+            "training_block": {
+                f"{r['dtype']} {r['case']}": {
+                    "kernel_device_ms": r["kernel_device_ms"],
+                    "bound_ms": r["bound_ms"]}
+                for r in grad_rows if r["kernel"] == name},
             "card": card})
         if name == "flash_attention":
             yi = next(r for r in mine if (r["case"], r["dtype"]) == ("yi", "bf16"))
             kernels[-1].update(yi6b_ms=yi["kernel_ms"],
                                yi6b_library_ms=yi["library_ms"])
+            arc = next(r for r in mine
+                       if (r["case"], r["dtype"]) == ("arctic", "bf16"))
+            kernels[-1]["arctic_gqa7"] = {
+                k: arc[k] for k in ("shape", "max_abs_err", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")}
+            kernels[-1]["arctic_gqa7"].update(
+                ms=arc["kernel_ms"], launches_per_prefill=moe[
+                    "arctic_prefill"]["launches"]["flash_attention"])
         else:
             m2 = next(r for r in mine if r["case"] == "mamba2")
             kernels[-1].update(phases_ms=row["phases_ms"],

@@ -19,8 +19,9 @@ itself stays workload-agnostic:
   report boundary reads them.
 
 :func:`make_lm_model` adapts the LM backbone
-(:mod:`repro_torch.models.transformer`: dense, hybrid and ssm families) to
-the ``ModelAPI`` contract, with FFN-hidden-width HeteroFL masks.
+(:mod:`repro_torch.models.transformer`: dense, moe, hybrid and ssm
+families) to the ``ModelAPI`` contract, with FFN-hidden-width HeteroFL
+masks.
 :func:`lm_task` builds the synthetic-token-stream task of the LM training
 entry point (:mod:`repro_torch.launch.train`), and :func:`lm_fleet_data`
 packages the same streams as a :class:`repro_torch.fleet.engine.FleetData`
@@ -111,8 +112,10 @@ def _lm_width_masks(cfg: ArchConfig):
     """FFN-hidden-width HeteroFL masks for the stacked transformer params.
 
     Client u updates the first ``ceil(r_u * F)`` hidden units of every
-    block's FFN (``wg``/``wu``/``wd`` under an FFN parent key), matched by
-    the leaf's dict path as in the reference. Attention, SSM, norm and
+    block's FFN (``wg``/``wu``/``wd`` under an FFN parent key: the dense
+    SwiGLU, the MoE experts (L, E, D, F) / (L, E, F, D), the shared and
+    dense-residual FFNs), matched by the leaf's dict path as in the
+    reference. Attention, SSM, norm and
     embedding leaves stay full-width (a mask of ones), so every entry is
     covered by the full-width clients and the width-overlap mean
     (:func:`repro_torch.core.aggregation.hetero_overlap_mean`) is always
@@ -151,14 +154,16 @@ def _lm_width_masks(cfg: ArchConfig):
     return width_masks
 
 
-def make_lm_model(cfg: ArchConfig, *, remat: bool = False) -> ModelAPI:
+def make_lm_model(cfg: ArchConfig, *, moe_aux_coef: float = 0.01,
+                  remat: bool = False) -> ModelAPI:
     """A :class:`ModelAPI` over the LM backbone.
 
     The data payload is a ``(b, seq+1)`` token ROW per sample; the
     shifted-label split happens inside ``loss``/``predict``, so the generic
     minibatch sampler and cohort padding treat LM data like feature
     vectors. ``loss`` is the sample-weighted next-token CE (the runtime
-    weights rows by 1/S_u, so the weighted sum is the batch mean).
+    weights rows by 1/S_u, so the weighted sum is the batch mean), plus
+    ``moe_aux_coef * aux / L`` when the config routes.
     ``init(gen, device)`` seeds a generator on ``device`` from ``gen`` (a
     full-width init drawn on the CPU would take tens of seconds) and draws
     the f32 params there; ``"meta"`` gives shapes only.
@@ -174,8 +179,10 @@ def make_lm_model(cfg: ArchConfig, *, remat: bool = False) -> ModelAPI:
 
     def loss(params, x, y, w):
         tok, lab = x[:, :-1], x[:, 1:]
-        logits = tr.forward(params, cfg, tok, remat=remat)
-        return torch.sum(w * tr.token_nll(logits, lab).mean(-1))
+        logits, aux = tr.forward(params, cfg, tok, remat=remat,
+                                 with_aux=True)
+        return tr.with_moe_aux(torch.sum(w * tr.token_nll(logits, lab)
+                                         .mean(-1)), aux, cfg, moe_aux_coef)
 
     def predict(params, x):
         # per-position next-token logits for (b, seq+1) rows
@@ -227,7 +234,8 @@ def _lm_rows(cfg: ArchConfig, n_rows: int, seq: int, seed: int,
 
 def lm_task(cfg: ArchConfig, *, U: int, seq: int = 64, n_seq: int = 96,
             n_eval: int = 64, seed: int = 0, vocab: Optional[int] = None,
-            holdout: bool = False, remat: bool = False) -> Task:
+            holdout: bool = False, moe_aux_coef: float = 0.01,
+            remat: bool = False) -> Task:
     """Synthetic-token-stream LM task: ``U`` clients with contiguous stream
     shards (non-IID by stream position).
 
@@ -247,7 +255,8 @@ def lm_task(cfg: ArchConfig, *, U: int, seq: int = 64, n_seq: int = 96,
     else:
         head = max(n_eval // U, 1)
         test = pool[:, :head].reshape(-1, seq + 1)
-    return Task(model=make_lm_model(cfg, remat=remat), client_x=pool,
+    return Task(model=make_lm_model(cfg, moe_aux_coef=moe_aux_coef,
+                                    remat=remat), client_x=pool,
                 client_y=np.zeros((U, n_seq), np.int32),
                 counts=np.full((U,), n_seq, np.int32),
                 test_x=test, kind="lm", name=f"lm-{cfg.name}")

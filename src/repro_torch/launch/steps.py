@@ -49,13 +49,14 @@ def client_batch(cfg: ArchConfig, shape, U: int) -> int:
 
 
 def _client_grad(cfg: ArchConfig, params: PyTree, tok: torch.Tensor,
-                 lab: torch.Tensor, remat: bool) -> PyTree:
+                 lab: torch.Tensor, remat: bool,
+                 moe_aux_coef: float = 0.01) -> PyTree:
     """One client's gradient of ``tr.loss_fn`` under autograd (so
     ``remat`` works), f32, congruent with ``params``."""
     leaves = [w.detach().requires_grad_() for w in tree_leaves(params)]
     with torch.enable_grad():
         loss = tr.loss_fn(tree_unflatten(params, leaves), cfg, tok, lab,
-                          remat=remat)
+                          moe_aux_coef=moe_aux_coef, remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return tree_unflatten(params, [
         torch.zeros(w.shape, dtype=_F32, device=w.device) if g is None
@@ -75,12 +76,13 @@ def _sgd(params: PyTree, agg: PyTree, eta) -> PyTree:
 
 
 def make_train_step(cfg: ArchConfig, *, U: int, mode: str = "temporal",
-                    remat: bool = True):
+                    remat: bool = True, moe_aux_coef: float = 0.01):
     """Returns ``train_step(params, tokens, labels, mask, p, eta)``.
 
     tokens/labels: (U, b, S) int; mask: (U, L_total) f32 straggler
     contribution mask; p: (L_total,) zero-contributor probabilities; eta:
-    the learning rate. Returns the updated params.
+    the learning rate. Returns the updated params. A config that routes
+    adds ``moe_aux_coef * aux / L`` to each client's loss.
     """
     tr.check_supported(cfg)
     if mode not in ("temporal", "spatial"):
@@ -93,7 +95,7 @@ def make_train_step(cfg: ArchConfig, *, U: int, mode: str = "temporal",
             "mode='temporal'")
 
     def client_loss(params, tok, lab):
-        return tr.loss_fn(params, cfg, tok, lab)
+        return tr.loss_fn(params, cfg, tok, lab, moe_aux_coef=moe_aux_coef)
 
     def train_step(params, tokens, labels, mask, p, eta):
         ids = tr.layer_ids(params, cfg)
@@ -106,7 +108,8 @@ def make_train_step(cfg: ArchConfig, *, U: int, mode: str = "temporal",
                         eta)
         agg = None
         for u in range(U):
-            g = _client_grad(cfg, params, tokens[u], labels[u], remat)
+            g = _client_grad(cfg, params, tokens[u], labels[u], remat,
+                             moe_aux_coef)
             part = _fold_one(g, ids, coeffs[u])
             del g
             agg = part if agg is None else tree_map(torch.add, agg, part)
@@ -115,7 +118,8 @@ def make_train_step(cfg: ArchConfig, *, U: int, mode: str = "temporal",
     return train_step
 
 
-def make_client_grad(cfg: ArchConfig, *, remat: bool = True):
+def make_client_grad(cfg: ArchConfig, *, remat: bool = True,
+                     moe_aux_coef: float = 0.01):
     """The temporal step's per-client body as a function of its own:
     ``client_grad(params, tok (b, S), lab (b, S), c_row (L_total,))`` ->
     the client's f32 gradient weighted by its coefficient row (congruent
@@ -125,8 +129,8 @@ def make_client_grad(cfg: ArchConfig, *, remat: bool = True):
 
     def client_grad(params, tok, lab, c_row):
         ids = tr.layer_ids(params, cfg)
-        return _fold_one(_client_grad(cfg, params, tok, lab, remat), ids,
-                         c_row.to(_F32))
+        return _fold_one(_client_grad(cfg, params, tok, lab, remat,
+                                      moe_aux_coef), ids, c_row.to(_F32))
 
     return client_grad
 

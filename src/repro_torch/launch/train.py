@@ -19,10 +19,13 @@ fold the grouped fold kernels.
 
 It runs on the card unless ``--device cpu`` is given; ``--reduced`` (the
 default) is the 2-block smoke config, ``--full`` the arch at its published
-width and depth:
+width and depth, ``--layers N`` the arch cut to its first N blocks (a model
+too deep for one card at full width):
 
     python -m repro_torch.launch.train --arch hymba-1.5b --full \\
         --backend temporal --clients 4 --seq 256 --s-max-cap 8 --rounds 3
+    python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --full \\
+        --layers 2 --backend temporal --clients 4 --seq 256 --s-max-cap 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \\
         --device cpu --rounds 6 --tmax 30 --clients 4 --seq 32 --eta0 1.0
 """
@@ -57,7 +60,8 @@ __all__ = ["run_training", "main"]
 def run_training(arch: str, *, method: str = "adel", rounds: int = 40,
                  tmax: float = 160.0, U: int = 8, seq: int = 64,
                  n_seq: int = 96, eta0: float = 0.5, seed: int = 0,
-                 reduced: bool = True, solver: str = "adam",
+                 reduced: bool = True, layers: int | None = None,
+                 solver: str = "adam",
                  solver_steps: int | None = None,
                  exec: ExecSpec | None = None,
                  backend: str | None = None, chunk_size: int | None = None,
@@ -84,7 +88,7 @@ def run_training(arch: str, *, method: str = "adel", rounds: int = 40,
     path saved every ``ckpt_every`` rounds (default R/4) through the
     ``on_round`` hook, ``tracer`` a :class:`repro_torch.obs.Tracer`.
     ``s_max_cap`` caps the minibatch pad width (sequences a client a
-    round).
+    round). ``layers`` cuts the config to its first ``layers`` blocks.
 
     ``population`` (None by default) switches WHO the LM trains against: a
     :class:`repro_torch.fleet.population.PopulationSpec`, source string or
@@ -98,6 +102,8 @@ def run_training(arch: str, *, method: str = "adel", rounds: int = 40,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, L=layers)
     dev = resolve_device(device)
     spec = ExecSpec.resolve(exec, backend=backend, chunk_size=chunk_size,
                             mesh=mesh, local_iters=local_iters,
@@ -225,6 +231,8 @@ def main(argv=None) -> int:
                     help="the 2-block smoke config (default)")
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="the arch at its published width and depth")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch to its first N blocks")
     ap.add_argument("--replan", default=None, choices=list(TRIGGERS),
                     help="online re-planning trigger "
                          "(repro_torch.core.replan)")
@@ -266,6 +274,7 @@ def main(argv=None) -> int:
                                rounds=args.rounds, tmax=args.tmax,
                                U=args.clients, eta0=args.eta0, seq=args.seq,
                                seed=args.seed, reduced=args.reduced,
+                               layers=args.layers,
                                solver=args.solver,
                                solver_steps=args.solver_steps, exec=spec,
                                replan=replan, population=pspec,

@@ -1,17 +1,20 @@
 """Attention primitives: GQA (optionally sliding-window), RoPE (full / half
-"2d" ChatGLM-style) and single-token decode against a full or rolling-window
-KV cache (port of ``repro.models.attention``; MLA waits for ROADMAP
-1.13.3).
+"2d" ChatGLM-style), single-token decode against a full or rolling-window
+KV cache, and MLA (DeepSeek-V2 multi-head latent attention) with a
+compressed KV cache (port of ``repro.models.attention``).
 
-All functions are plain PyTorch. The model's prefill calls the CUDA flash
-attention kernel through ``kernels/ops.py:gqa_flash``; :func:`gqa_attention`
-is the reference's jnp attention, kept for the parity tests.
+All functions are plain PyTorch. The model's GQA prefill calls the CUDA
+flash attention kernel through ``kernels/ops.py:gqa_flash``;
+:func:`gqa_attention` is the reference's jnp attention, kept for the parity
+tests. MLA's prefill stays plain, as in the reference: its q/k head dim
+(nope + rope) is not its v head dim.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rope", "visible_mask", "gqa_attention", "decode_attention"]
+__all__ = ["rope", "visible_mask", "gqa_attention", "decode_attention",
+           "mla_prefill", "mla_decode"]
 
 _F32 = torch.float32
 
@@ -100,3 +103,74 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2): compressed KV cache
+# ---------------------------------------------------------------------------
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as jnp's matmul."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def _mla_dims(cfg) -> tuple:
+    return (cfg.n_heads, cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim,
+            cfg.kv_lora)
+
+
+def mla_prefill(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
+    """Prefill/train MLA. x: (B, S, D). Returns (attn_out (B, S, D),
+    (c_kv (B, S, c), k_pe (B, S, dr))).
+
+    Params p: wq (D, H*(dn+dr)), w_dkv (D, c), w_uk (c, H*dn),
+    w_uv (c, H*dv), w_kr (D, dr), wo (H*dv, D). Scores in f32 over
+    ``q_nope . k_nope + q_pe . k_pe``, scaled by ``(dn + dr) ** -0.5``,
+    causal (masked at -1e30).
+    """
+    B, S, _ = x.shape
+    H, dn, dr, dv, _ = _mla_dims(cfg)
+    q = _mm(x, p["wq"]).reshape(B, S, H, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = rope(q_pe, positions, mode="full", theta=cfg.rope_theta)
+    c_kv = _mm(x, p["w_dkv"])                                 # (B, S, c)
+    k_pe = rope(_mm(x, p["w_kr"])[:, :, None, :], positions, mode="full",
+                theta=cfg.rope_theta)[:, :, 0]                # (B, S, dr)
+    k_nope = _mm(c_kv, p["w_uk"]).reshape(B, S, H, dn)
+    v = _mm(c_kv, p["w_uv"]).reshape(B, S, H, dv)
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope.to(_F32),
+                           k_nope.to(_F32))
+              + torch.einsum("bshd,btd->bhst", q_pe.to(_F32),
+                             k_pe.to(_F32))) * (dn + dr) ** -0.5
+    mask = visible_mask(S, S, True, 0, x.device)
+    probs = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
+    return _mm(out.reshape(B, S, H * dv), p["wo"]), (c_kv, k_pe)
+
+
+def mla_decode(x: torch.Tensor, p: dict, cfg, c_cache: torch.Tensor,
+               kpe_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """Absorbed-matrix MLA decode: scores against the COMPRESSED cache
+    (c_kv, k_pe) without re-expanding K/V, in f32. x: (B, 1, D);
+    c_cache: (B, S, c); kpe_cache: (B, S, dr); the first ``pos + 1`` slots
+    are valid. Returns (B, 1, D)."""
+    B = x.shape[0]
+    H, dn, dr, dv, c = _mla_dims(cfg)
+    q = _mm(x, p["wq"]).reshape(B, 1, H, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = rope(q_pe, torch.full((1,), pos, device=x.device), mode="full",
+                theta=cfg.rope_theta)
+    # absorb W_uk into the query: q_c (B, H, c)
+    q_c = torch.einsum("bhd,chd->bhc", q_nope[:, 0].to(_F32),
+                       p["w_uk"].reshape(c, H, dn).to(_F32))
+    scores = (torch.einsum("bhc,btc->bht", q_c, c_cache.to(_F32))
+              + torch.einsum("bhd,btd->bht", q_pe[:, 0].to(_F32),
+                             kpe_cache.to(_F32))) * (dn + dr) ** -0.5
+    valid = torch.arange(c_cache.shape[1], device=x.device) < pos + 1
+    probs = torch.softmax(scores.masked_fill(~valid, -1e30), dim=-1)
+    # attend in latent space, then expand through W_uv (absorbed output)
+    ctx_c = torch.einsum("bht,btc->bhc", probs, c_cache.to(_F32))
+    ctx = torch.einsum("bhc,chd->bhd", ctx_c,
+                       p["w_uv"].reshape(c, H, dv).to(_F32))
+    return _mm(ctx.reshape(B, 1, H * dv).to(x.dtype), p["wo"])

@@ -1,14 +1,17 @@
-"""Layered LM backbone for the dense, hybrid and ssm families (port of
-``repro.models.transformer``).
+"""Layered LM backbone for the dense, moe, hybrid and ssm families (port
+of ``repro.models.transformer``).
 
 One :class:`~repro_torch.configs.base.ArchConfig` selects among:
 
 * dense  — pre-norm GQA transformer (optional QKV bias, full/half RoPE,
   optional sliding window), SwiGLU FFN;
+* moe    — GQA or MLA attention + token-choice top-k MoE FFN
+  (:mod:`repro_torch.models.moe`; optional shared experts, optional
+  Arctic-style dense residual FFN);
 * ssm    — Mamba2 SSD blocks (attention-free);
 * hybrid — parallel attention + SSD heads per block (Hymba).
 
-The moe, MLA, vlm/audio-frontend and encoder-decoder families raise
+The vlm/audio-frontend and encoder-decoder families raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Params are the reference's dict of leaves, the L blocks STACKED on a leading
@@ -16,13 +19,16 @@ axis, so they cross between the packages unchanged
 (:func:`repro_torch.convert.params_from_jax`); the blocks run as a Python
 loop over that axis. Computation is cast to ``cfg.dtype`` with float32
 softmax, norms and SSM state; params stay in their stored dtype. On CUDA
-tensors the full-sequence forward's attention is the hand-written flash
+tensors the full-sequence forward's GQA attention is the hand-written flash
 attention kernel (``kernels/ops.py:gqa_flash``) and its SSD scan the
 hand-written chunk-scan kernel (``ops.ssd_chunked_kernel``); on CPU tensors
 both compute their plain versions. Both go through ``autograd.Function`` s
 with plain backwards, so :func:`loss_fn` trains through the kernels under
 autograd and ``torch.func`` (the FL backends' ``vmap(grad)``). The decode
 path is plain PyTorch, as in the reference, and updates its cache in place.
+MLA (DeepSeek-V2) is plain PyTorch in both paths, as in the reference: its
+q/k head dim (nope + rope, 192 at full width) is not the v head dim, which
+the flash kernel does not take.
 """
 from __future__ import annotations
 
@@ -36,7 +42,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.attention import decode_attention, rope
+from repro_torch.models.attention import (decode_attention, mla_decode,
+                                          mla_prefill, rope)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import ssd_decode_step
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -44,24 +52,18 @@ PyTree = Any
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
            "decode_step", "layer_ids", "count_params", "Cache",
-           "check_supported", "token_nll"]
+           "check_supported", "token_nll", "with_moe_aux"]
 
 _F32 = torch.float32
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not cover."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP 1.13.2)")
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP 1.13.3)")
     if cfg.frontend != "none" or cfg.enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: vision/audio frontends and encoder-decoder stacks "
             "are not ported yet (ROADMAP 1.13.4)")
-    if cfg.family not in ("dense", "hybrid", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}")
 
 
@@ -109,11 +111,23 @@ class _Init:
             return torch.empty(shape, dtype=dtype or self.dtype,
                                device=self.device)
         x = torch.randn(shape, generator=self.gen, device=self.gen.device)
-        return (scale * x).to(device=self.device, dtype=dtype or self.dtype)
+        return x.mul_(scale).to(device=self.device, dtype=dtype or self.dtype)
 
     def dense(self, shape, scale=None) -> torch.Tensor:
         return self.normal(shape, 1.0 / math.sqrt(shape[-2])
                            if scale is None else scale)
+
+    def experts(self, shape, scale=None) -> torch.Tensor:
+        """A stacked expert leaf (L, E, a, b) drawn one (layer, expert)
+        matrix at a time into its storage: at arctic-480b's width one f32
+        copy of a whole leaf of 2 blocks would be 35.7 GB."""
+        scale = 1.0 / math.sqrt(shape[-2]) if scale is None else scale
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        if self.device.type != "meta":
+            for mat in out.view(-1, *shape[-2:]):
+                mat.copy_(torch.randn(shape[-2:], generator=self.gen,
+                                      device=self.gen.device).mul_(scale))
+        return out
 
     def full(self, shape, value, dtype=_F32) -> torch.Tensor:
         return torch.full(shape, value, dtype=dtype, device=self.device)
@@ -131,10 +145,32 @@ def _init_attn(init: _Init, cfg: ArchConfig, L: int) -> dict:
     return p
 
 
-def _init_mlp(init: _Init, cfg: ArchConfig, L: int) -> dict:
-    D, Fd = cfg.d_model, cfg.d_ff
+def _init_mlp(init: _Init, cfg: ArchConfig, L: int, d_ff=None) -> dict:
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     return {"wg": init.dense((L, D, Fd)), "wu": init.dense((L, D, Fd)),
             "wd": init.dense((L, Fd, D), scale=1.0 / math.sqrt(Fd))}
+
+
+def _init_mla(init: _Init, cfg: ArchConfig, L: int) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv, c = (cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim,
+                     cfg.kv_lora)
+    return {"wq": init.dense((L, D, H * (dn + dr))),
+            "w_dkv": init.dense((L, D, c)),
+            "w_uk": init.dense((L, c, H * dn)),
+            "w_uv": init.dense((L, c, H * dv)),
+            "w_kr": init.dense((L, D, dr)),
+            "wo": init.dense((L, H * dv, D), scale=1.0 / math.sqrt(H * dv))}
+
+
+def _init_moe(init: _Init, cfg: ArchConfig, L: int) -> dict:
+    """Router (L, D, E) in f32 whatever the params' dtype; experts
+    wg/wu (L, E, D, F) and wd (L, E, F, D)."""
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    return {"router": init.normal((L, D, E), 1.0 / math.sqrt(D), _F32),
+            "wg": init.experts((L, E, D, Fe)),
+            "wu": init.experts((L, E, D, Fe)),
+            "wd": init.experts((L, E, Fe, D), scale=1.0 / math.sqrt(Fe))}
 
 
 def _init_ssm(init: _Init, cfg: ArchConfig, L: int) -> dict:
@@ -165,7 +201,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
     L, V, D = cfg.L, cfg.padded_vocab, cfg.d_model
     blocks: dict = {"norm1": init.full((L, D), 1.0)}
     if cfg.has_attention:
-        blocks["attn"] = _init_attn(init, cfg, L)
+        blocks["attn"] = (_init_mla(init, cfg, L) if cfg.attention == "mla"
+                          else _init_attn(init, cfg, L))
     if cfg.has_ssm:
         blocks["ssm"] = _init_ssm(init, cfg, L)
         if cfg.family == "hybrid":
@@ -173,6 +210,14 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
             blocks["fuse_ns"] = init.full((L, D), 1.0)
     if cfg.family != "ssm":
         blocks["norm2"] = init.full((L, D), 1.0)
+    if cfg.is_moe:
+        blocks["moe"] = _init_moe(init, cfg, L)
+        if cfg.n_shared:
+            blocks["shared"] = _init_mlp(init, cfg, L,
+                                         d_ff=cfg.n_shared * cfg.expert_d_ff)
+        if cfg.dense_residual:
+            blocks["dense"] = _init_mlp(init, cfg, L)
+    elif cfg.family != "ssm":
         blocks["mlp"] = _init_mlp(init, cfg, L)
     params = {"embed": init.normal((V, D), 0.02), "blocks": blocks,
               "final_norm": init.full((D,), 1.0)}
@@ -201,6 +246,15 @@ def _blocks(blocks: dict, L: int) -> list[dict]:
 
     views = unbind(blocks)
     return [pick(views, l) for l in range(L)]
+
+
+def _embed(params: PyTree, tokens: torch.Tensor, cdt) -> torch.Tensor:
+    """The token embeddings, through ``F.embedding``: its backward sums
+    each row's grads in a fixed order. Indexing the table (``embed[tokens]``)
+    has an ``index_put_(accumulate=True)`` backward, which on the CPU adds a
+    repeated token's rows from several threads in whatever order they run,
+    so two runs of one round differed in the last bits (ROADMAP 3.3)."""
+    return F.embedding(tokens, params["embed"].to(cdt))
 
 
 def _head(params: PyTree, cfg: ArchConfig, cdt) -> torch.Tensor:
@@ -278,8 +332,32 @@ def _ssm_forward(p, cfg: ArchConfig, h, cdt):
     return y @ p["out_proj"].to(cdt)
 
 
+def _ffn_forward(p, cfg: ArchConfig, h, cdt, *, dropless: bool = False):
+    """Dense SwiGLU, or MoE (+ shared / dense-residual). Returns (out, aux),
+    aux None for a dense FFN.
+
+    ``dropless`` (the decode path) sizes expert capacity so that no token
+    is dropped (``capacity_factor = n_experts``), as in the reference.
+    """
+    if not cfg.is_moe:
+        return _swiglu(h, p["mlp"], cdt), None
+    B, S, D = h.shape
+    moe_p = {k: v if k == "router" else v.to(cdt)
+             for k, v in p["moe"].items()}
+    cf = float(cfg.n_experts) if dropless else cfg.capacity_factor
+    out, aux = moe_ffn(h.reshape(B * S, D), moe_p, top_k=cfg.top_k,
+                       capacity_factor=cf)
+    out = out.reshape(B, S, D)
+    if cfg.n_shared:
+        out = out + _swiglu(h, p["shared"], cdt)
+    if cfg.dense_residual:
+        out = out + _swiglu(h, p["dense"], cdt)
+    return out, aux
+
+
 def _block_forward(p, cfg: ArchConfig, h, positions, cdt):
-    """One decoder block, full sequence."""
+    """One decoder block, full sequence. Returns (h, aux), aux None for a
+    block without MoE."""
     x = _rms_norm(h, p["norm1"], cfg.norm_eps)
     if cfg.family == "hybrid":
         a = _attn_forward(p["attn"], cfg, x, positions, cdt)
@@ -287,11 +365,16 @@ def _block_forward(p, cfg: ArchConfig, h, positions, cdt):
         h = h + 0.5 * (_rms_norm(a, p["fuse_na"], cfg.norm_eps)
                        + _rms_norm(s, p["fuse_ns"], cfg.norm_eps))
     elif cfg.family == "ssm":
-        return h + _ssm_forward(p["ssm"], cfg, x, cdt)  # Mamba block: no FFN
+        # Mamba block: no FFN
+        return h + _ssm_forward(p["ssm"], cfg, x, cdt), None
+    elif cfg.attention == "mla":
+        h = h + mla_prefill(x, {k: v.to(cdt) for k, v in p["attn"].items()},
+                            cfg, positions)[0]
     else:
         h = h + _attn_forward(p["attn"], cfg, x, positions, cdt)
-    x2 = _rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + _swiglu(x2, p["mlp"], cdt)
+    out, aux = _ffn_forward(p, cfg, _rms_norm(h, p["norm2"], cfg.norm_eps),
+                            cdt)
+    return h + out, aux
 
 
 def _under_torch_func() -> bool:
@@ -300,8 +383,10 @@ def _under_torch_func() -> bool:
 
 
 def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
-            remat: bool = False) -> torch.Tensor:
-    """Logits (B, S, V) for a full sequence of tokens (B, S).
+            remat: bool = False, with_aux: bool = False):
+    """Logits (B, S, V) for a full sequence of tokens (B, S); with
+    ``with_aux``, ``(logits, aux)`` as the reference returns them: aux is
+    the blocks' summed MoE load-balance loss (f32; 0 without MoE).
 
     ``remat=True`` recomputes each block in the backward instead of keeping
     its activations (the reference's ``jax.checkpoint`` of the block), via
@@ -316,25 +401,37 @@ def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
             "torch.func transforms (ROADMAP 1.13.5)")
     remat = remat and torch.is_grad_enabled()
     cdt = _dtype(cfg.dtype)
-    h = params["embed"].to(cdt)[tokens]
+    h = _embed(params, tokens, cdt)
     positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=_F32, device=h.device)
     for p in _blocks(params["blocks"], cfg.L):
         if remat:
-            h = checkpoint(_block_forward, p, cfg, h, positions, cdt,
-                           use_reentrant=False)
+            h, a = checkpoint(_block_forward, p, cfg, h, positions, cdt,
+                              use_reentrant=False)
         else:
-            h = _block_forward(p, cfg, h, positions, cdt)
+            h, a = _block_forward(p, cfg, h, positions, cdt)
+        if a is not None:
+            aux = aux + a
     h = _rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h @ _head(params, cfg, cdt)
+    logits = h @ _head(params, cfg, cdt)
+    return (logits, aux) if with_aux else logits
 
 
 def loss_fn(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
+            labels: torch.Tensor, *, moe_aux_coef: float = 0.01,
+            remat: bool = False) -> torch.Tensor:
     """Mean next-token CE over (B, S) tokens and labels, the log-softmax in
-    f32 (the reference's ``loss_fn`` for the dense, hybrid and ssm
-    families, which have no MoE auxiliary)."""
-    logits = forward(params, cfg, tokens, remat=remat)
-    return token_nll(logits, labels).mean()
+    f32, plus ``moe_aux_coef * aux / L`` when the config routes."""
+    logits, aux = forward(params, cfg, tokens, remat=remat, with_aux=True)
+    return with_moe_aux(token_nll(logits, labels).mean(), aux, cfg,
+                        moe_aux_coef)
+
+
+def with_moe_aux(loss: torch.Tensor, aux: torch.Tensor, cfg: ArchConfig,
+                 moe_aux_coef: float) -> torch.Tensor:
+    """``loss + moe_aux_coef * aux / L`` for a config that routes, else
+    ``loss``."""
+    return loss + moe_aux_coef * aux / cfg.L if cfg.is_moe else loss
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -358,19 +455,25 @@ def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tens
 
 class Cache(NamedTuple):
     kv: Optional[tuple] = None        # (k, v): (L, B, W_or_S, KV, hd)
+    mla: Optional[tuple] = None       # (c_kv (L,B,S,c), k_pe (L,B,S,dr))
     ssm: Optional[tuple] = None       # (state (L,B,H,N,P), conv (L,B,W-1,C))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, dtype=None,
                device=None) -> Cache:
     """Zero caches. A sliding-window arch keeps a rolling window of
-    W = min(window, max_seq) slots; the SSM state is f32."""
+    W = min(window, max_seq) slots; MLA keeps the compressed latent and the
+    shared rope key of every position; the SSM state is f32."""
     check_supported(cfg)
     dtype = _dtype(dtype or cfg.dtype)
     dev = resolve_device(device)
     L, KV, hd = cfg.L, cfg.n_kv, cfg.head_dim
-    kv = ssm = None
-    if cfg.has_attention:
+    kv = mla = ssm = None
+    if cfg.attention == "mla":
+        mla = tuple(torch.zeros((L, batch, max_seq, width), dtype=dtype,
+                                device=dev)
+                    for width in (cfg.kv_lora, cfg.mla_rope_dim))
+    elif cfg.has_attention:
         W = min(cfg.window, max_seq) if cfg.window else max_seq
         kv = tuple(torch.zeros((L, batch, W, KV, hd), dtype=dtype, device=dev)
                    for _ in range(2))
@@ -380,7 +483,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, dtype=None,
                torch.zeros((L, batch, cfg.ssm_conv - 1,
                             cfg.d_inner + 2 * cfg.ssm_state), dtype=dtype,
                            device=dev))
-    return Cache(kv=kv, ssm=ssm)
+    return Cache(kv=kv, mla=mla, ssm=ssm)
 
 
 def _attn_decode(p, cfg: ArchConfig, x, pos: int, k_c, v_c, cdt):
@@ -399,6 +502,18 @@ def _attn_decode(p, cfg: ArchConfig, x, pos: int, k_c, v_c, cdt):
     v_c[:, slot] = v[:, 0]
     out = decode_attention(q, k_c, v_c, min(pos + 1, W))
     return _mm(out.reshape(B, 1, -1), p["wo"].to(cdt))
+
+
+def _mla_decode(p, cfg: ArchConfig, x, pos: int, c_c, pe_c, cdt):
+    """Single-token MLA decode for one layer, x: (B, 1, D); writes this
+    token's latent and rope key into slot ``pos`` of the layer's caches in
+    place, then attends against the compressed cache."""
+    ap = {k: v.to(cdt) for k, v in p.items()}
+    c_c[:, pos] = _mm(x[:, 0], ap["w_dkv"])
+    pe_c[:, pos] = rope(_mm(x, ap["w_kr"])[:, :, None, :],
+                        torch.full((1,), pos, device=x.device), mode="full",
+                        theta=cfg.rope_theta)[:, 0, 0]
+    return mla_decode(x, ap, cfg, c_c, pe_c, pos)
 
 
 def _ssm_decode(p, cfg: ArchConfig, x, state, conv_hist, cdt):
@@ -435,10 +550,13 @@ def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
     check_supported(cfg)
     cdt = _dtype(cfg.dtype)
     pos = int(pos)
-    h = params["embed"].to(cdt)[token][:, None, :]            # (B, 1, D)
+    h = _embed(params, token, cdt)[:, None, :]                # (B, 1, D)
     for l, p in enumerate(_blocks(params["blocks"], cfg.L)):
         x = _rms_norm(h, p["norm1"], cfg.norm_eps)
-        if cfg.has_attention:
+        if cfg.attention == "mla":
+            a = _mla_decode(p["attn"], cfg, x, pos, cache.mla[0][l],
+                            cache.mla[1][l], cdt)
+        elif cfg.has_attention:
             a = _attn_decode(p["attn"], cfg, x, pos, cache.kv[0][l],
                              cache.kv[1][l], cdt)
         if cfg.has_ssm:
@@ -452,7 +570,8 @@ def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
             continue
         else:
             h = h + a
-        h = h + _swiglu(_rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"], cdt)
+        h = h + _ffn_forward(p, cfg, _rms_norm(h, p["norm2"], cfg.norm_eps),
+                             cdt, dropless=True)[0]
     h = _rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _mm(h[:, 0], _head(params, cfg, cdt)).to(_F32)
     return logits, cache

@@ -2,12 +2,13 @@
 ``tests/test_arch_smoke.py`` for the dense, hybrid and ssm families, and of
 the parts of ``tests/test_models_extra.py`` whose modules the port has).
 
-A REDUCED variant of each covered arch (2 layers, d_model <= 512) runs a
-forward, one federated train step and two serve steps on the CPU: shapes
-check out, nothing is NaN, the step changes params. The forward is held
-against the reference's on the same params (rtol = atol = 1e-4, as
-``tests/test_torch_lm.py``'s logits). The moe, MLA and vlm/audio families
-name their ROADMAP items in training too. GroupNorm statistics atol 1e-4 /
+A REDUCED variant of each covered arch (2 layers, d_model <= 512; the
+dense, moe (GQA and MLA), hybrid and ssm families) runs a forward, one
+federated train step and two serve steps on the CPU: shapes check out,
+nothing is NaN, the step changes params. The forward is held against the
+reference's on the same params (rtol = atol = 1e-4, as
+``tests/test_torch_lm.py``'s logits). The vlm/audio families name their
+ROADMAP item in training too. GroupNorm statistics atol 1e-4 /
 1e-3 and the zero-init heads' ln(10) loss 1e-3, as the reference's tests.
 """
 import jax
@@ -27,12 +28,10 @@ from repro_torch.models.paper_models import make_cnn, make_mlp, make_vgg
 from repro_torch.tree import tree_leaves
 
 ARCH_NAMES = sorted(ARCHS)
-COVERED = [n for n in ARCH_NAMES if ARCHS[n].family in ("dense", "hybrid",
-                                                        "ssm")
-           and not ARCHS[n].is_moe and ARCHS[n].attention != "mla"
+COVERED = [n for n in ARCH_NAMES if ARCHS[n].family in ("dense", "moe",
+                                                        "hybrid", "ssm")
            and ARCHS[n].frontend == "none" and not ARCHS[n].enc_layers]
-UNCOVERED = {"arctic-480b": "1.13.2", "deepseek-v2-lite-16b": "1.13.2",
-             "llava-next-34b": "1.13.4", "seamless-m4t-medium": "1.13.4"}
+UNCOVERED = {"llava-next-34b": "1.13.4", "seamless-m4t-medium": "1.13.4"}
 
 
 def _gen(seed=0):
@@ -47,7 +46,8 @@ def _ref_params(name):
 
 def test_covered_and_uncovered_partition_the_archs():
     assert sorted(COVERED + list(UNCOVERED)) == ARCH_NAMES
-    assert {"hymba-1.5b", "mamba2-370m", "qwen1.5-4b"} <= set(COVERED)
+    assert {"hymba-1.5b", "mamba2-370m", "qwen1.5-4b", "arctic-480b",
+            "deepseek-v2-lite-16b"} <= set(COVERED)
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)

@@ -659,6 +659,7 @@ SSD_TOL = dict(rtol=1e-4, atol=1e-4)
     (2, 25, 5, 1024, 1024, 64, True, 256, "bhsd"),    # hymba heads, shorter S
     (2, 25, 5, 1024, 1024, 64, True, 256, "bshd"),    # ... as the model lays them out
     (1, 32, 4, 512, 512, 128, True, 0, "bhsd"),       # yi-6b heads
+    (1, 56, 8, 512, 512, 128, True, 0, "bshd"),       # arctic-480b, G = 7
     (1, 4, 2, 1000, 1000, 64, True, 100, "bhsd"),     # ragged S
     (1, 4, 2, 1000, 1000, 128, True, 0, "bshd"),      # hd 128, Sk % 128 != 0
     (2, 2, 2, 128, 300, 64, False, 0, "bhsd"),        # non-causal, Sq != Sk
@@ -801,11 +802,12 @@ def test_lm_kernel_wrappers_check_their_inputs(cuda):
         ssd_scan(big, big[..., 0].contiguous(), big, big, chunk=256)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m", "yi-6b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m", "yi-6b",
+                                  "arctic-480b", "deepseek-v2-lite-16b"])
 def test_prefill_on_card_matches_cpu(cuda, arch):
     """A reduced model's prefill on the card (the kernels, one launch of
-    each per block) against the same prefill on the CPU (their plain
-    versions), f32 with TF32 off: rtol = atol = 1e-4."""
+    each per block; MLA is plain) against the same prefill on the CPU
+    (their plain versions), f32 with TF32 off: rtol = atol = 1e-4."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -824,20 +826,23 @@ def test_prefill_on_card_matches_cpu(cuda, arch):
     torch.cuda.synchronize()
     launched = (flash_attention.launches - before[0],
                 ssd_scan.launches - before[1])
-    assert launched == (cfg.L if cfg.has_attention else 0,
+    assert launched == (cfg.L if cfg.attention == "gqa" else 0,
                         cfg.L if cfg.has_ssm else 0)
     assert _close(out.cpu(), ref, 1e-4, 1e-4), (out.cpu() - ref).abs().max()
 
 
 @pytest.mark.parametrize("backend", ["dense", "temporal"])
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m", "qwen1.5-4b",
+                                  "arctic-480b", "deepseek-v2-lite-16b"])
 def test_lm_round_on_card_matches_cpu(cuda, arch, backend):
     """One LM training round of a reduced model on the card (the kernels
     forward, the plain backwards, the grouped fold) against the same round
     on the CPU (plain versions), f32 with TF32 off: params rtol 1e-4 / atol
     1e-5. Launches: one flash and one SSD scan a block a vmapped call (the
-    clients folded into the batch), one grouped fold a round on dense and
-    one a client on temporal."""
+    clients folded into the batch; MLA is plain), one grouped fold a round
+    on dense and one a client on temporal. The MoE archs route each
+    client's tokens through ``moe_ffn`` (plain PyTorch, as the
+    reference)."""
     from repro_torch.configs import get_config
     from repro_torch.fl.backends import make_backend
     from repro_torch.fl.tasks import make_lm_model
@@ -873,7 +878,7 @@ def test_lm_round_on_card_matches_cpu(cuda, arch, backend):
     assert (flash_attention.launches - before[0],
             ssd_scan.launches - before[1],
             adel_agg_grouped.launches - before[2]) == (
-        cfg.L * calls if cfg.has_attention else 0,
+        cfg.L * calls if cfg.attention == "gqa" else 0,
         cfg.L * calls if cfg.has_ssm else 0, calls)
     for a, r in zip(tree_leaves(out), tree_leaves(ref)):
         assert _close(a.cpu(), r, 1e-4, 1e-5), (a.cpu() - r).abs().max()

@@ -260,3 +260,49 @@ def test_exec_spec_pipeline_validation_and_cli():
     help_text = ap.format_help()
     assert "prefetch" in help_text and "not ported" not in help_text.split(
         "--pipeline")[1].split("--")[0]
+
+
+# ---------------------------------------------------------------------------
+# the LM at torch's default intra-op thread count (ROADMAP 3.3)
+# ---------------------------------------------------------------------------
+
+LM_REPEATS = 3
+
+
+def _lm_run(pipeline):
+    from repro_torch.launch.train import run_training
+    return run_training("qwen1.5-4b", rounds=3, tmax=15.0, U=4, seq=16,
+                        n_seq=24, eta0=1.0, seed=0, solver_steps=200,
+                        exec=ExecSpec(backend="dense", pipeline=pipeline),
+                        eval_every=1, verbose=False, device="cpu")
+
+
+def test_lm_prefetch_bit_identical_to_serial_repeatedly():
+    """The reduced-qwen LM run, serial then alternately prefetch and serial
+    ``LM_REPEATS`` times in one process, each bit-identical to the first.
+    The embedding's backward once summed a repeated token's rows in thread
+    order, so both loops drifted in the last bits from run to run."""
+    serial = _lm_run("serial")
+    for i in range(LM_REPEATS):
+        _assert_bit_identical(serial,
+                              _lm_run("prefetch" if i % 2 == 0 else "serial"))
+
+
+def test_lm_client_grads_repeat_bit_for_bit():
+    """``vmap(grad)`` of the reduced-qwen loss over 3 clients whose rows
+    repeat tokens, 4 times: every gradient bit-identical to the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.tasks import make_lm_model
+
+    model = make_lm_model(get_config("qwen1.5-4b").reduced())
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    x = torch.randint(0, 16, (3, 4, 17), generator=torch.Generator()
+                      .manual_seed(1), dtype=torch.int32)
+    y = torch.zeros((3, 4), dtype=torch.int32)
+    w = torch.full((3, 4), 0.25)
+    grad = torch.func.vmap(torch.func.grad(model.loss),
+                           in_dims=(None, 0, 0, 0))
+    first = tree_leaves(grad(params, x, y, w))
+    for _ in range(3):
+        for a, b in zip(first, tree_leaves(grad(params, x, y, w))):
+            assert torch.equal(a, b)

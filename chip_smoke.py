@@ -21,7 +21,8 @@
    and the 38 per-leaf ``adel_agg_q8`` launches of earlier rounds (int8).
 4. Holds the LM kernels against their plain versions the same way:
    ``flash_attention`` (bf16 on the tensor cores, f32 on the CUDA cores) at
-   hymba-1.5b's prefill shape, at yi-6b's, with a ragged S, non-causal with
+   hymba-1.5b's prefill shape and its training block (8 x 256 tokens), at
+   yi-6b's, with a ragged S, non-causal with
    Sq != Sk and with rows that see no key, each in bf16 and f32, and
    through ``gqa_flash`` on the model's (B, S, H, hd) tensors at hymba's
    shape, beside ``scaled_dot_product_attention`` (a yardstick the port
@@ -132,8 +133,35 @@
    launch a client a round and no other kernel (wrappers and
    ``torch.profiler``), wall a round, peak memory, idle share; and one
    client's fold on these leaves (the (L, E*D*F) expert leaves among them)
-   against its plain version.
-13. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+   against its plain version, beside 18 ``torch.einsum`` calls.
+13. Encoder-decoder and vision-prefix LMs, remat, calibration.
+   ``flash_attention`` at seamless-m4t-medium's encoder (non-causal, 1024
+   over 1024, 16/16 heads of 64), its decoder's causal self-attention (4096
+   over 4096), its cross-attention (4096 over 1024), the training step's
+   self- and cross-attention (256 over 256 causal, 256 over 1024), and
+   llava-next-34b's GQA (56/8 heads of 128, S 3904: a ragged last q tile)
+   is among step 4's cases, bf16 and f32. ``[seamless prefill]``: the
+   whole model (12 + 12 blocks, bf16) over 2 x (1024 frames + 4096 text
+   tokens) through ``make_prefill_step(cfg)(params, tokens, frames)``: 36
+   flash launches by the wrapper and the profiler, 12 at each of the
+   encoder's, self- and cross-attention's problems by the wrapper's tally,
+   tokens/s over every position and over the text, peak memory, idle share
+   and device ms by kind. ``[seamless serve]`` (``serve``, batch 4, 64 + 32
+   tokens, the encoder and the cross cache first), ``[encdec agree]`` (2 +
+   2 blocks, f32: the prefill through the kernel against stepping the
+   decode path with a cross cache from an encoder run with the plain
+   attention), ``[seamless train]`` (one temporal ``make_train_step``
+   round, U=2, frames: every leaf changed, one grouped fold a client, 36
+   flash launches a client forward and 36 in its backward's recompute, 48
+   at each problem in the round). ``[llava prefill]``: the whole model (60 blocks,
+   bf16, 68.8 GB) over 2 x (2880 patches + 1024 text tokens): 60 flash
+   launches, init seconds and peak; ``[llava agree]`` (2 blocks, bf16:
+   every position against the plain attention on the card). ``[remat]``:
+   one hymba-1.5b client's step (8 x 256 tokens), spatial and temporal,
+   with and without ``remat``: the updates compared, each one's wall and
+   peak memory. ``[calibrate]``:
+   ``calibrate_constants`` on the card against the CPU (MLP), then VGG-11.
+14. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
     line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -142,6 +170,7 @@ repository's ``src/repro_torch`` beside it; any failed phase exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -1763,6 +1792,27 @@ def lm_kernel_cases(torch) -> list:
         ("ragged", 1, 4, 2, 1000, 1000, 64, True, 100, ("bf16", "f32")),
         ("cross", 2, 8, 2, 512, 1000, 64, False, 0, ("bf16", "f32")),
         ("nokey", 1, 2, 1, 200, 40, 64, True, 16, ("bf16", "f32")),
+        # seamless-m4t-medium's prefill: the encoder's bidirectional
+        # self-attention over 1024 frames, the decoder's causal
+        # self-attention over 4096 text positions and its cross-attention
+        # (4096 text positions over the 1024 encoder positions)
+        ("seamless_encoder", 2, 16, 16, 1024, 1024, 64, False, 0,
+         ("bf16", "f32")),
+        ("seamless_decoder", 2, 16, 16, 4096, 4096, 64, True, 0,
+         ("bf16", "f32")),
+        ("seamless_cross", 2, 16, 16, 4096, 1024, 64, False, 0,
+         ("bf16", "f32")),
+        # seamless's training step (a client's 2 rows of 256 tokens): the
+        # decoder's self- and cross-attention (its encoder is the row above)
+        ("seamless_train_self", 2, 16, 16, 256, 256, 64, True, 0,
+         ("bf16", "f32")),
+        ("seamless_train_cross", 2, 16, 16, 256, 1024, 64, False, 0,
+         ("bf16", "f32")),
+        # llava-next-34b: G = 7 over 2880 patches + 1024 text tokens, the
+        # last q tile ragged (3904 = 30 x 128 + 64)
+        ("llava", 2, 56, 8, 3904, 3904, 128, True, 0, ("bf16", "f32")),
+        # hymba-1.5b's training block: 8 rows of 256 tokens a client
+        ("train_block", 8, 25, 5, 256, 256, 64, True, 1024, ("bf16", "f32")),
         # gqa_flash on the model's (B, S, H, hd) tensors, read through strides
         ("model", 2, 25, 5, 4096, 4096, 64, True, 1024, ("bf16",)),
     ]
@@ -1806,6 +1856,7 @@ def lm_kernel_cases(torch) -> list:
                                                        window=window), lib),
                    flash_cost(B, H, KV, Sq, Sk, hd, causal, window,
                               q.element_size()), peak, reps=5)
+            rows[-1]["problem"] = (B, H, KV, Sq, Sk, hd, causal, window)
             del q, k, v, out, ref
 
     # "model": hymba's xdt and la as (B, H, S, P) and (B, H, S) views of the
@@ -2243,7 +2294,7 @@ def device_split(prof) -> dict:
             kind = "ssd_scan"
         elif "fold_grouped" in e.key or re.search(r"\bfold_kernel", e.key):
             kind = "fold"
-        elif re.search(r"gemm|nvjet|xmma|cutlass", e.key, re.I):
+        elif GEMM_NAME.search(e.key):
             kind = "gemm"
         elif "softmax" in e.key.lower():
             kind = "log_softmax"
@@ -2490,6 +2541,7 @@ MOE_AGREE_BF16 = 5e-2
 MOE_AGREE_SHARE = 0.9
 OP_KINDS = ("expert_gemm", "dispatch_combine", "router", "moe_other",
             "mla_attention", "flash_attention", "gemm", "other")
+GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
 
 
 def own_kernels(e) -> list:
@@ -2525,7 +2577,9 @@ def op_split(prof) -> dict:
     ``mla_prefill`` everything but its projections (``mla_attention``:
     rope, the score and PV products, mask, softmax); the flash kernel
     (``flash_attention``); elsewhere the GEMMs (``gemm``: projections,
-    shared and dense FFNs, the head) and the rest. Kernels count once, at
+    shared and dense FFNs, the head: a product op's kernels, or a kernel
+    named as a GEMM where the profiler hung it on another op, as it did
+    with most of llava-next-34b's) and the rest. Kernels count once, at
     the innermost op that holds them (``own_kernels``), and not on a
     Python call (``python_ms`` says how much the profiler hung there).
     None (with a line saying what the profile held) when it recorded no
@@ -2566,6 +2620,7 @@ def op_split(prof) -> dict:
             kind = "gemm" if gemm else "other"
         for k in kernels:
             ms["flash_attention" if "flash_fwd" in k.name
+               else "gemm" if kind == "other" and GEMM_NAME.search(k.name)
                else kind] += k.duration / 1e3
     if not python:
         print(f"[op split] no Python frames: {launching} host ops launched "
@@ -2575,47 +2630,59 @@ def op_split(prof) -> dict:
     return ms
 
 
-def prefill_phase(torch, tag: str, cfg, params) -> dict:
-    """``make_prefill_step`` over B x S random tokens: finite logits, wall
-    (median of 3 after a warm-up), tokens/s, peak memory, the LM kernels'
-    launches by their wrappers, then one prefill under ``torch.profiler``
-    (host and device): idle share, device ms by kind (``op_split``) and the
-    flash kernel's launches as the profiler counts them."""
+def prefill_phase(torch, tag: str, cfg, params, B: int = MOE_PREFILL["B"],
+                  S: int = MOE_PREFILL["S"]) -> dict:
+    """``make_prefill_step`` over B x S random tokens (and, for a config
+    with a frontend, B x n_frontend_tokens patch or frame embeddings of
+    0.02 N(0, 1)): finite logits, wall (median of 3 after a warm-up),
+    tokens/s (over every position the model reads, and over the text
+    alone), peak memory, the LM kernels' launches by their wrappers, then
+    one prefill under ``torch.profiler`` (host and device): idle share,
+    device ms by kind (``op_split``) and the flash kernel's launches as
+    the profiler counts them."""
     from repro_torch.launch.steps import make_prefill_step
-    B, S = MOE_PREFILL["B"], MOE_PREFILL["S"]
     gen = torch.Generator(device="cuda").manual_seed(7)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    n_front = cfg.n_frontend_tokens if cfg.frontend != "none" else 0
+    extra = (() if not n_front else (0.02 * torch.randn(
+        (B, n_front, cfg.d_model), generator=gen, device="cuda"),))
     step = make_prefill_step(cfg)
     counters = lm_counters()
-    step(params, tokens)                                 # warm-up
+    step(params, tokens, *extra)                         # warm-up
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
+    counters["flash_attention"].shapes.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits = step(params, tokens)
+    logits = step(params, tokens, *extra)
     torch.cuda.synchronize()
     walls = [1e3 * (time.perf_counter() - t0)]
     launches = {k: c.launches for k, c in counters.items()}
+    flash_shapes = dict(counters["flash_attention"].shapes)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(tuple(logits.shape) == (B, cfg.padded_vocab),
           f"{tag}: prefill logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), f"{tag}: logits not finite")
     for _ in range(2):
         t0 = time.perf_counter()
-        step(params, tokens)
+        step(params, tokens, *extra)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = sorted(walls)[1]
-    print(f"[{tag} prefill] B={B} S={S} logits={tuple(logits.shape)} finite "
+    read = B * (S + n_front)
+    print(f"[{tag} prefill] B={B} S={S}"
+          + (f" + {n_front} {cfg.frontend} frontend positions" if n_front
+             else "") + f" logits={tuple(logits.shape)} finite "
           "launches " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f" wall_ms={[round(w, 3) for w in walls]} median_wall_ms="
-          f"{wall:.3f} prefill_tok_per_s={B * S / wall * 1e3:.1f} "
-          f"peak_mem_gb={peak_gb:.2f}", flush=True)
+          f"{wall:.3f} prefill_tok_per_s={read / wall * 1e3:.1f}"
+          + (f" text_tok_per_s={B * S / wall * 1e3:.1f}" if n_front else "")
+          + f" peak_mem_gb={peak_gb:.2f}", flush=True)
     with device_profile(torch, cpu=True, stack=True) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(params, tokens)
+        step(params, tokens, *extra)
         torch.cuda.synchronize()
         prof_wall = 1e3 * (time.perf_counter() - t0)
     kernels = device_kernels(prof)
@@ -2635,9 +2702,11 @@ def prefill_phase(torch, tag: str, cfg, params) -> dict:
         print(f"[{tag} profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     check(busy > 0, f"{tag}: the profiler saw no device time")
-    del tokens, logits
-    return {"launches": launches, "wall_ms": wall, "peak_gb": peak_gb,
-            "tok_per_s": B * S / wall * 1e3, "busy_ms": busy,
+    del tokens, logits, extra
+    return {"launches": launches, "flash_shapes": flash_shapes,
+            "wall_ms": wall, "peak_gb": peak_gb,
+            "tok_per_s": read / wall * 1e3,
+            "text_tok_per_s": B * S / wall * 1e3, "busy_ms": busy,
             "idle_share": 1 - busy / prof_wall, "flash_profiled": flash,
             "split": split}
 
@@ -2810,9 +2879,11 @@ def moe_fold_case(torch, params, ids) -> dict:
     (2 blocks at full width, f32: the (L, E*D*F) expert leaves among them):
     ``adel_agg_grouped`` at U=1 against its plain version on random grads
     with the leaves' shapes and layer ids, as ``_fold_one`` hands them over;
-    timed with the bytes bound."""
+    timed with the bytes bound, beside one ``torch.einsum`` a leaf (a
+    yardstick the port never calls, as the VGG-11 fold's)."""
     from repro_torch.kernels.adel_agg import (adel_agg_grouped,
-                                              adel_agg_grouped_plain)
+                                              adel_agg_grouped_plain,
+                                              leaf_coeff_rows)
     from repro_torch.kernels.ops import leaf_dims
     from repro_torch.tree import tree_leaves
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -2833,15 +2904,21 @@ def moe_fold_case(torch, params, ids) -> dict:
                  iters=5, warmup=1)
     plain_ms = call_ms(torch, lambda: adel_agg_grouped_plain(
         leaves, id_list, coeff), iters=3, warmup=1)
+    rows = [leaf_coeff_rows(coeff, i) for i in id_list]
+    library_ms = call_ms(torch, lambda: [
+        torch.einsum("ul,ulf->lf", c, g) for g, c in zip(leaves, rows)],
+        iters=5, warmup=1)
     biggest = max(leaves, key=lambda t: t.numel())
     row = {"leaves": len(leaves), "values": n, "largest_leaf":
            tuple(biggest.shape[1:]), "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes, 2 * n),
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms(nbytes, 2 * n),
            "bound_by": bound_by(nbytes, 2 * n)}
     print(f"[moe train] one client's fold (U=1, f32): {row['leaves']} leaves, "
           f"{n} values, largest (rows, F)={row['largest_leaf']} "
           f"max_abs_err={err:.3e} tol=rtol {rtol:g}/atol {atol:g} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{library_ms:.4f} ({len(leaves)} torch.einsum) bound_ms="
           f"{row['bound_ms']:.4f} ({row['bound_by']}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"the MoE cell's fold disagrees with plain: {err}")
@@ -2941,6 +3018,468 @@ def moe_training(torch) -> dict:
             "split": split["ms"], "fold": fold}
 
 
+# ---------------------------------------------------------------------------
+# encoder-decoder and vision-prefix LMs, remat under torch.func, calibration
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-medium prefill: 2 x (1024 frames + 4096 text tokens); its
+# flash launches: 12 encoder, 12 decoder self- and 12 cross-attention
+ENCDEC_TEXT = 4096
+# llava-next-34b prefill: 2 x (2880 patch embeddings + 1024 text tokens)
+LLAVA_TEXT = 1024
+# [encdec agree]: seamless at full width, 2 + 2 blocks, f32, 2 x 64 text
+# tokens over 1024 frames: the prefill's last position against stepping
+# the decode path with the cross cache, within AGREE_TOL * max(1, max|logit|)
+# [llava agree]: llava at full width, 2 blocks, bf16, 2 x (2880 + 64)
+# positions: every position's logits through the kernel against the same
+# forward with the plain attention on the card, within MOE_AGREE_BF16 *
+# max(1, max|logit|) (arctic's bf16 bound; llava does not route, so every
+# position, not 90% of them)
+AGREE_BLOCKS = 2
+AGREE_TEXT = 64
+# [seamless train]: one temporal round at full width, f32 params, bf16
+# compute, U clients of b rows of seq tokens, frames (U, b, 1024, 1024)
+ENCDEC_TRAIN = dict(U=2, b=2, seq=256)
+# [remat]: hymba-1.5b at full width, one client of 8 rows of 256 tokens in
+# both layouts; on an H100 80GB HBM3 the spatial step without remat takes
+# 68.6 GB above its start there (scripts/probe_remat_guard.py --rows 8)
+REMAT_ROWS = 8
+REMAT_SEQ = 256
+# calibrate_constants on the card against the same call on the CPU
+CALIBRATE_RTOL = 1e-4
+
+
+def frontend_embeddings(torch, cfg, lead, seed: int):
+    """Patch or frame embeddings (*lead, n_frontend_tokens, d_model) of
+    0.02 N(0, 1), as ``launch/serve.py`` draws frames."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return 0.02 * torch.randn((*lead, cfg.n_frontend_tokens, cfg.d_model),
+                              generator=gen, device="cuda")
+
+
+def seamless_problems(cfg, B: int, S: int) -> dict:
+    """The flash problems ``(B, H, KV, Sq, Sk, hd, causal, window)`` of one
+    seamless forward over B x S text tokens and its frames, as the flash
+    wrapper tallies them: encoder, decoder self- and cross-attention."""
+    H, KV, hd, n = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.n_frontend_tokens
+    return {"encoder": (B, H, KV, n, n, hd, False, cfg.window),
+            "decoder": (B, H, KV, S, S, hd, True, cfg.window),
+            "cross": (B, H, KV, S, n, hd, False, cfg.window)}
+
+
+def plain_gqa(q, k, v, *, causal=True, window=0):
+    """``ops.gqa_flash`` with ``flash_attention_plain`` in the kernel's place
+    (the model's (B, S, H, hd) layout)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    return flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window).transpose(1, 2)
+
+
+def encdec_agree(torch) -> float:
+    """seamless at full width, 2 + 2 blocks, f32 with TF32 off: the
+    prefill's last-position logits (the flash kernel in the encoder, the
+    decoder's self- and cross-attention) against ``decode_step`` stepped
+    through the prompt with a cross cache built from an encoder run with
+    ``flash_attention_plain`` in the kernel's place, so no kernel is on
+    the decode side."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"),
+                              L=AGREE_BLOCKS, enc_layers=AGREE_BLOCKS,
+                              dtype="float32")
+    B, S = 2, AGREE_TEXT
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = tr.init_params(gen, cfg, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    frames = frontend_embeddings(torch, cfg, (B,), 12)
+    flash_attention.launches = 0
+    pre = make_prefill_step(cfg)(params, tokens, frames)
+    launched = flash_attention.launches
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        kernel_fn, ops.gqa_flash = ops.gqa_flash, plain_gqa
+        try:
+            enc = tr._run_encoder(params, cfg, frames, torch.float32)
+        finally:
+            ops.gqa_flash = kernel_fn
+        cache = tr.init_cache(cfg, B, S, device="cuda")._replace(
+            cross=tr.build_cross_cache(params, cfg, enc))
+        for pos in range(S):
+            dec, cache = tr.decode_step(params, cfg, cache, tokens[:, pos],
+                                        pos)
+    torch.cuda.synchronize()
+    per = cfg.enc_layers + 2 * cfg.L
+    err = float((pre - dec).abs().max())
+    scale = max(1.0, float(dec.abs().max()))
+    print(f"[encdec agree] seamless-m4t-medium full width, {cfg.enc_layers} "
+          f"+ {cfg.L} blocks, f32, B={B} text={S} frames="
+          f"{cfg.n_frontend_tokens}: prefill (kernel) vs decode with the "
+          f"cross cache (plain encoder): max_abs_err={err:.3e} "
+          f"max_abs_logit={float(dec.abs().max()):.4f} tol={AGREE_TOL:g}"
+          f"*max(1,max|logit|) decode_s={time.perf_counter() - t0:.3f} "
+          f"flash launches {launched} (prefill), "
+          f"{flash_attention.launches - launched} (decode side)", flush=True)
+    check(bool(torch.isfinite(pre).all()), "encdec agree: logits not finite")
+    check(launched == per and flash_attention.launches == launched,
+          f"encdec agree: flash launches {launched} (prefill), "
+          f"{flash_attention.launches - launched} (decode side)")
+    check(err <= AGREE_TOL * scale,
+          f"encdec agree: prefill and decode disagree: {err}")
+    del params, cache, enc
+    torch.cuda.empty_cache()
+    return err / scale
+
+
+def encdec_train(torch) -> dict:
+    """One ``make_train_step(cfg, U=2, mode="temporal")`` round on
+    seamless-m4t-medium at full width (f32 params, bf16 compute, remat on,
+    the step's default), with frames: finite, every leaf changed (the
+    encoder's and cross-attention's too: the frames reach the forward),
+    one grouped fold a client and no other fold; the flash launches of one
+    client's forward and of its backward's recompute, counted apart; wall
+    and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = get_config("seamless-m4t-medium")
+    U, b, S = ENCDEC_TRAIN["U"], ENCDEC_TRAIN["b"], ENCDEC_TRAIN["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    params = tr.init_params(gen, cfg, device="cuda")
+    tok = torch.randint(0, cfg.vocab, (U, b, S), generator=gen, device="cuda")
+    lab = torch.randint(0, cfg.vocab, (U, b, S), generator=gen, device="cuda")
+    frames = frontend_embeddings(torch, cfg, (U, b), 14)
+    L = cfg.n_blocks_total
+    mask = torch.ones((U, L), device="cuda")
+    p = torch.full((L,), 0.05, device="cuda")
+    counters = lm_counters()
+    flash = counters["flash_attention"]
+
+    # one client's forward and backward apart: the recompute's launches
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    flash.launches = 0
+    with torch.enable_grad():
+        loss = tr.loss_fn(tree_unflatten(params, leaves), cfg, tok[0], lab[0],
+                          frontend=frames[0], remat=True)
+        fwd = flash.launches
+        torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    recompute = flash.launches - fwd
+    del leaves, loss
+
+    step = make_train_step(cfg, U=U, mode="temporal")
+    sums = [float(t.sum(dtype=torch.float64)) for t in tree_leaves(params)]
+    step(params, tok, lab, mask, p, 0.1, frames)         # warm-up
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    flash.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new = step(params, tok, lab, mask, p, 0.1, frames)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: c.launches for k, c in counters.items()}
+    flash_shapes = dict(flash.shapes)
+    by_problem = {name: flash_shapes.get(prob, 0) for name, prob in
+                  seamless_problems(cfg, b, S).items()}
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+    changed = sum(float(t.sum(dtype=torch.float64)) != v
+                  for t, v in zip(tree_leaves(new), sums))
+    n_params = tr.count_params(params)
+    print(f"[seamless train] full width {cfg.enc_layers} + {cfg.L} blocks, "
+          f"{n_params} f32 params ({4 * n_params / 1e9:.2f} GB), compute "
+          f"{cfg.dtype}, temporal U={U} b={b} seq={S} frames="
+          f"{tuple(frames.shape)} remat=True: finite={finite} leaves_changed="
+          f"{changed}/{len(sums)} wall_ms={wall:.3f} peak_mem_gb={peak_gb:.2f}"
+          f" launches " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + f"; one client: flash forward={fwd} recompute={recompute}; "
+          "flash launches by problem (wrapper): "
+          + " ".join(f"{k}={v}" for k, v in by_problem.items()), flush=True)
+    per_fwd = cfg.enc_layers + 2 * cfg.L
+    check(finite, "seamless train: params not finite")
+    check(changed == len(sums), f"{len(sums) - changed} leaves unchanged")
+    check(fwd == per_fwd and recompute == per_fwd,
+          f"one client's flash launches {fwd} + {recompute}, not "
+          f"{per_fwd} + {per_fwd}")
+    check(launches["adel_agg_grouped"] == U,
+          f"{launches['adel_agg_grouped']} grouped folds, not {U}")
+    check(launches["flash_attention"] == 2 * per_fwd * U,
+          f"{launches['flash_attention']} flash launches, not {2 * per_fwd * U}")
+    check(by_problem == {"encoder": 2 * cfg.enc_layers * U,
+                         "decoder": 2 * cfg.L * U, "cross": 2 * cfg.L * U},
+          f"seamless train: flash launches by problem {flash_shapes}")
+    others = {k: v for k, v in launches.items()
+              if k not in ("adel_agg_grouped", "flash_attention")}
+    check(not any(others.values()), f"another kernel ran: {others}")
+    del params, new
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall, "peak_gb": peak_gb, "launches": launches,
+            "flash_shapes": flash_shapes, "flash_forward": fwd,
+            "flash_recompute": recompute}
+
+
+def seamless_serve(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    counters = lm_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = serve("seamless-m4t-medium", batch=4, prompt_len=64, new_tokens=32,
+                reduced=False, device="cuda", verbose=False)
+    gen = torch.tensor(out["generated"])
+    cfg = get_config("seamless-m4t-medium")
+    print(f"[seamless serve] batch=4 prompt_len=64 new_tokens=32 frames="
+          f"{cfg.n_frontend_tokens} (f32 params, f32 KV cache, bf16 cross "
+          f"cache) generated={tuple(gen.shape)} prompt_s="
+          f"{out['prefill_s']:.3f} decode_s={out['decode_s']:.3f} "
+          f"decode_tok_per_s={out['tok_per_s']:.2f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          + " ".join(f"{k}={c.launches}" for k, c in counters.items())
+          + " (the encoder through the kernel; decode is plain, as in the "
+          f"reference) sample={gen[0, :8].tolist()}", flush=True)
+    check(tuple(gen.shape) == (4, 32), f"generated shape {tuple(gen.shape)}")
+    check(bool(((gen >= 0) & (gen < cfg.padded_vocab)).all()),
+          "generated token out of range")
+    check(counters["flash_attention"].launches == cfg.enc_layers,
+          f"{counters['flash_attention'].launches} flash launches in serve, "
+          f"not the encoder's {cfg.enc_layers}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_models(torch) -> dict:
+    """seamless-m4t-medium whole in bf16 (prefill, profile), then serve,
+    agree and one training round; each model's params freed before the
+    next is drawn."""
+    from repro_torch.configs import get_config
+    cfg = get_config("seamless-m4t-medium")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_bf16(torch, "seamless", cfg, 3)
+    pre = prefill_phase(torch, "seamless", cfg, params, B=2, S=ENCDEC_TEXT)
+    per = cfg.enc_layers + 2 * cfg.L
+    check(pre["launches"]["flash_attention"] == per
+          and pre["flash_profiled"] == per,
+          f"seamless prefill: flash launches {pre['launches']} (wrapper), "
+          f"{pre['flash_profiled']} (profiler), not {per}")
+    by_problem = {name: pre["flash_shapes"].get(prob, 0) for name, prob in
+                  seamless_problems(cfg, 2, ENCDEC_TEXT).items()}
+    print("[seamless prefill] flash launches by problem (wrapper): "
+          + " ".join(f"{k}={v}" for k, v in by_problem.items()), flush=True)
+    check(by_problem == {"encoder": cfg.enc_layers, "decoder": cfg.L,
+                         "cross": cfg.L},
+          f"seamless prefill: flash launches by problem {pre['flash_shapes']}")
+    others = {k: v for k, v in pre["launches"].items()
+              if k != "flash_attention"}
+    check(not any(others.values()), f"seamless prefill: another kernel {others}")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill": pre, "serve": seamless_serve(torch),
+            "agree": encdec_agree(torch), "train": encdec_train(torch)}
+
+
+def llava_agree(torch) -> float:
+    """llava at full width, 2 blocks, bf16: every position's logits of the
+    forward through the flash kernel against the same forward with
+    ``flash_attention_plain`` in its place (on the card), over 2 x (2880
+    patches + 64 text tokens)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(get_config("llava-next-34b"), L=AGREE_BLOCKS)
+    B, S = 2, AGREE_TEXT
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    params = tr.init_params(gen, cfg, dtype=torch.bfloat16, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    patches = frontend_embeddings(torch, cfg, (B,), 16)
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        out = tr.forward(params, cfg, tokens, frontend=patches).float()
+        launched = flash_attention.launches
+        kernel_fn, ops.gqa_flash = ops.gqa_flash, plain_gqa
+        try:
+            ref = tr.forward(params, cfg, tokens, frontend=patches).float()
+        finally:
+            ops.gqa_flash = kernel_fn
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    errs = ((out - ref).abs().amax(-1) / scale).flatten()
+    worst = float(errs.max())
+    print(f"[llava agree] llava-next-34b full width, {cfg.L} blocks, bf16, "
+          f"B={B} positions={cfg.n_frontend_tokens}+{S}: kernel vs plain "
+          f"attention on the card: largest |difference| / max(1,max|logit|)"
+          f"={worst:.3e} (max_abs_logit={float(ref.abs().max()):.4f}) "
+          f"positions within tol={float((errs <= MOE_AGREE_BF16).float().mean()):.4f}"
+          f" tol={MOE_AGREE_BF16:g} at every position; flash launches "
+          f"{launched} (kernel run), {flash_attention.launches - launched} "
+          "(plain run)", flush=True)
+    check(bool(torch.isfinite(out).all()), "llava agree: logits not finite")
+    check(launched == cfg.L and flash_attention.launches == launched,
+          f"llava agree: flash launches {launched}, "
+          f"{flash_attention.launches - launched}")
+    check(worst <= MOE_AGREE_BF16,
+          f"llava agree: a position {worst} from the plain run")
+    del params, out, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def llava_models(torch) -> dict:
+    """llava-next-34b whole (60 of 60 blocks, bf16, 68.8 GB): init seconds
+    and peak after init, the prefill and its profile; then 2 blocks
+    against the plain attention."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llava-next-34b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_bf16(torch, "llava", cfg, 5)
+    pre = prefill_phase(torch, "llava", cfg, params, B=2, S=LLAVA_TEXT)
+    check(pre["launches"]["flash_attention"] == cfg.L
+          and pre["flash_profiled"] == cfg.L,
+          f"llava prefill: flash launches {pre['launches']} (wrapper), "
+          f"{pre['flash_profiled']} (profiler), not {cfg.L}")
+    others = {k: v for k, v in pre["launches"].items()
+              if k != "flash_attention"}
+    check(not any(others.values()), f"llava prefill: another kernel {others}")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill": pre, "agree": llava_agree(torch)}
+
+
+def remat_phase(torch) -> dict:
+    """hymba-1.5b at full width (f32 params, bf16 compute):
+    ``make_train_step`` with ``remat=False`` and ``remat=True`` on the same
+    inputs, U=1, in both client layouts: spatial (one client's
+    ``vmap(grad)``, as the backends run it) and temporal (autograd). Per
+    layout: the updates' largest difference over the update's largest
+    entry (bit for bit or not), and each run's peak memory above what was
+    allocated before it, after a garbage collection (the first call) and
+    its wall (the second)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("hymba-1.5b")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    params = tr.init_params(gen, cfg, device="cuda")
+    out = {}
+    rows = REMAT_ROWS
+    for mode in ("spatial", "temporal"):
+        tok = torch.randint(0, cfg.vocab, (1, rows, REMAT_SEQ), generator=gen,
+                            device="cuda")
+        args = (tok, tok, torch.ones((1, cfg.L), device="cuda"),
+                torch.full((cfg.L,), 0.05, device="cuda"), 0.1)
+        runs, kept = {}, {}
+        for remat in (False, True):
+            step = make_train_step(cfg, U=1, mode=mode, remat=remat)
+            # a step can leave its graph in a reference cycle of
+            # torch.func's, freed only when the collector runs: collect
+            # before reading the start, so no earlier step's graph counts
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            new = step(params, *args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            del new
+            t0 = time.perf_counter()
+            kept[remat] = step(params, *args)
+            torch.cuda.synchronize()
+            runs[remat] = {"wall_ms": 1e3 * (time.perf_counter() - t0),
+                           "peak_gb": peak / 1e9,
+                           "above_base_gb": (peak - base) / 1e9}
+        a, b_ = tree_leaves(kept[False]), tree_leaves(kept[True])
+        upd = max(float((x - w).abs().max())
+                  for x, w in zip(a, tree_leaves(params)))
+        diff = max(float((x - y).abs().max()) for x, y in zip(a, b_))
+        bitwise = all(torch.equal(x, y) for x, y in zip(a, b_))
+        del kept, a, b_
+        saved = runs[False]["above_base_gb"] - runs[True]["above_base_gb"]
+        cost = runs[True]["wall_ms"] - runs[False]["wall_ms"]
+        print(f"[remat] hymba-1.5b full width, {mode} U=1 b={rows} seq="
+              f"{REMAT_SEQ}: updates "
+              + ("bit-identical" if bitwise else "not bit-identical")
+              + f", max |difference| / max |update| = {diff / upd:.3e}; "
+              + " ".join(f"remat={r}: wall_ms={v['wall_ms']:.3f} peak_mem_gb="
+                         f"{v['peak_gb']:.2f} (above the step's start "
+                         f"{v['above_base_gb']:.2f})" for r, v in runs.items())
+              + f"; remat takes back {saved:.2f} GB for {cost:.3f} ms",
+              flush=True)
+        check(diff <= AGREE_UPDATE * upd,
+              f"remat changes the {mode} update by {diff} (update {upd})")
+        out[mode] = {"rows": rows, "bitwise": bitwise, "rel_diff": diff / upd,
+                     "saved_gb": saved, "cost_ms": cost,
+                     **{f"remat_{r}": v for r, v in runs.items()}}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def calibrate_phase(torch, vgg: dict) -> dict:
+    """``calibrate_constants`` on the MLP quickstart's data and params on
+    the card against the same call on CPU copies of the params, then on
+    VGG-11 (U=10, n_probe 32) on the card: seconds, sigma2, G2."""
+    import numpy as np
+
+    from repro_torch.core.types import AnalysisConfig
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.fl.calibrate import calibrate_constants
+    from repro_torch.fl.partition import dirichlet_partition, stack_clients
+    from repro_torch.models.paper_models import make_mlp
+    from repro_torch.tree import tree_map
+
+    x_tr, y_tr, _, _ = make_image_dataset("mnist", n_train=2500, n_test=800,
+                                          seed=0, noise_std=1.0)
+    cx, cy, counts = stack_clients(x_tr, y_tr, dirichlet_partition(
+        y_tr, 10, alpha=0.5, seed=0))
+    model = make_mlp()
+    cfg = AnalysisConfig.default(U=10, L=model.L, R=25, T_max=25 * model.L * 0.5,
+                                 eta0=2.0, seed=0)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    card = calibrate_constants(cfg, model, params, cx, cy, counts)
+    cpu = calibrate_constants(cfg, model, tree_map(lambda t: t.cpu(), params),
+                              cx, cy, counts)
+    rel = max(float(np.max(np.abs(card.sigma2 - cpu.sigma2) / cpu.sigma2)),
+              abs(card.G2 - cpu.G2) / cpu.G2)
+    print(f"[calibrate] mlp U=10 n_probe=32: card vs cpu max relative "
+          f"difference {rel:.3e} (rtol {CALIBRATE_RTOL:g}) sigma2="
+          f"{[round(float(v), 6) for v in card.sigma2]} G2={card.G2:.6f}",
+          flush=True)
+    check(rel <= CALIBRATE_RTOL, f"calibrate: card and cpu differ by {rel}")
+    cx, cy, counts = vgg["data"][:3]
+    model, cfg = vgg["model"], vgg["cfg"]
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = calibrate_constants(cfg, model, params, cx, cy, counts, n_probe=32)
+    secs = time.perf_counter() - t0
+    print(f"[calibrate] vgg11 U={cfg.U} n_probe=32 on the card: "
+          f"seconds={secs:.3f} sigma2={[round(float(v), 6) for v in out.sigma2]}"
+          f" G2={out.G2:.6f}", flush=True)
+    check(bool(np.all(np.isfinite(out.sigma2)) and np.all(out.sigma2 > 0)
+               and math.isfinite(out.G2) and out.G2 > 0),
+          "calibrate: VGG-11 constants not finite and positive")
+    del params
+    torch.cuda.empty_cache()
+    return {"mlp_rel_diff": rel, "vgg_seconds": secs, "vgg_G2": out.G2}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3003,6 +3542,10 @@ def main() -> int:
     lm_backends = lm_dense_vs_temporal(torch)
     moe = moe_models(torch)
     moe_train = moe_training(torch)
+    encdec = encdec_models(torch)
+    llava = llava_models(torch)
+    remat_phase(torch)
+    calibrate_phase(torch, vgg)
 
     replaces = {"adel_agg": "src/repro/kernels/adel_agg.py:34",
                 "adel_agg_q8": "src/repro/kernels/adel_agg.py:76"}
@@ -3078,6 +3621,24 @@ def main() -> int:
             kernels[-1]["arctic_gqa7"].update(
                 ms=arc["kernel_ms"], launches_per_prefill=moe[
                     "arctic_prefill"]["launches"]["flash_attention"])
+            # each problem's launches in the runs that make it, by the
+            # wrapper's tally (null where no run here makes it)
+            runs = {"launches_per_prefill": (encdec["prefill"],
+                                             llava["prefill"]),
+                    "launches_per_train_round": (encdec["train"],)}
+            for case in ("seamless_encoder", "seamless_decoder",
+                         "seamless_cross", "seamless_train_self",
+                         "seamless_train_cross", "llava", "train_block"):
+                new = {r["dtype"]: r for r in mine if r["case"] == case}
+                prob = new["bf16"]["problem"]
+                kernels[-1][case] = {
+                    "shape": new["bf16"]["shape"],
+                    **{key: sum(r["flash_shapes"].get(prob, 0) for r in rs)
+                       or None for key, rs in runs.items()},
+                    **{dt: {k: r[k] for k in (
+                        "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "max_abs_err")}
+                       for dt, r in new.items()}}
         else:
             m2 = next(r for r in mine if r["case"] == "mamba2")
             kernels[-1].update(phases_ms=row["phases_ms"],

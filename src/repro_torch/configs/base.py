@@ -9,7 +9,7 @@ imports the port's.
 Families: dense (GQA transformer), ssm (Mamba2 SSD), moe (GQA/MLA + MoE FFN),
 vlm / audio (transformer backbone with a stubbed modality frontend), hybrid
 (parallel attention + SSM heads, Hymba-style), and enc-dec (audio). The
-port's model covers dense, moe, hybrid and ssm (``models/transformer.py``).
+port's model covers every family (``models/transformer.py``).
 """
 from __future__ import annotations
 

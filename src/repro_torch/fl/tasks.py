@@ -19,9 +19,8 @@ itself stays workload-agnostic:
   report boundary reads them.
 
 :func:`make_lm_model` adapts the LM backbone
-(:mod:`repro_torch.models.transformer`: dense, moe, hybrid and ssm
-families) to the ``ModelAPI`` contract, with FFN-hidden-width HeteroFL
-masks.
+(:mod:`repro_torch.models.transformer`, every family) to the ``ModelAPI``
+contract, with FFN-hidden-width HeteroFL masks.
 :func:`lm_task` builds the synthetic-token-stream task of the LM training
 entry point (:mod:`repro_torch.launch.train`), and :func:`lm_fleet_data`
 packages the same streams as a :class:`repro_torch.fleet.engine.FleetData`
@@ -166,9 +165,11 @@ def make_lm_model(cfg: ArchConfig, *, moe_aux_coef: float = 0.01,
     ``moe_aux_coef * aux / L`` when the config routes.
     ``init(gen, device)`` seeds a generator on ``device`` from ``gen`` (a
     full-width init drawn on the CPU would take tens of seconds) and draws
-    the f32 params there; ``"meta"`` gives shapes only.
+    the f32 params there; ``"meta"`` gives shapes only. A vlm or audio
+    config trains on the text alone, as the reference's: no frontend
+    reaches the forward, so the encoder's and cross-attention's leaves get
+    zero gradients and are folded like every other leaf.
     """
-    tr.check_supported(cfg)
 
     def init(gen: torch.Generator, device) -> PyTree:
         dev = resolve_device(device)

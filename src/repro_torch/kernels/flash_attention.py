@@ -19,7 +19,8 @@ layout. Bound on an H100 SXM: operations (4 * hd flops per visible
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it computes :func:`flash_attention_plain`, which ``chip_smoke.py`` also
 holds the kernels against on the card. ``flash_attention.launches`` counts
-the launches.
+the launches, and ``flash_attention.shapes`` the same launches by problem
+``(B, H, KV, Sq, Sk, hd, causal, window)``.
 
 :class:`FlashAttention` is the wrapper under autograd and ``torch.func``:
 its forward is :func:`flash_attention` (the kernel on the card), its
@@ -30,6 +31,7 @@ vmapped dim into B, so one launch serves every client of a vmapped call.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -156,10 +158,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
     flash_attention.launches += 1
+    flash_attention.shapes[(B, H, KV, Sq, Sk, hd, bool(causal),
+                            int(window))] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.shapes = collections.Counter()
 
 
 def flash_attention_backward_plain(q, k, v, o, do, *, causal: bool = True,

@@ -6,7 +6,9 @@ to fill the cache, then greedy-decode (port of ``repro.launch.serve``).
 
 Runs on the card unless ``--device cpu`` (or ``device="cpu"``) asks for the
 CPU. ``--full`` uses the published widths and depth; without it the
-arch's ``reduced()`` variant.
+arch's ``reduced()`` variant. An encoder-decoder arch (seamless-m4t-medium)
+first encodes ``n_frontend_tokens`` random frames and fills the decoder's
+cross-attention cache from them.
 """
 from __future__ import annotations
 
@@ -43,6 +45,14 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
                             device=dev)
     cache = tr.init_cache(cfg, batch, prompt_len + new_tokens,
                           dtype=torch.float32, device=dev)
+    if cfg.enc_layers:
+        frames = 0.02 * torch.randn((batch, cfg.n_frontend_tokens,
+                                     cfg.d_model), generator=gen, device=dev)
+        with torch.inference_mode():
+            enc_out = tr._run_encoder(params, cfg, frames,
+                                      getattr(torch, cfg.dtype))
+            cache = cache._replace(cross=tr.build_cross_cache(params, cfg,
+                                                              enc_out))
     step = make_serve_step(cfg)
 
     # prefill by stepping the prompt through the decode path (cache fill)

@@ -1,43 +1,49 @@
-"""Layered LM backbone for the dense, moe, hybrid and ssm families (port
-of ``repro.models.transformer``).
+"""Layered LM backbone for every family of the configs (port of
+``repro.models.transformer``).
 
 One :class:`~repro_torch.configs.base.ArchConfig` selects among:
 
-* dense  — pre-norm GQA transformer (optional QKV bias, full/half RoPE,
-  optional sliding window), SwiGLU FFN;
+* dense / vlm — pre-norm GQA transformer (optional QKV bias, full/half
+  RoPE, optional sliding window), SwiGLU FFN; vlm prepends precomputed
+  patch embeddings to the text;
 * moe    — GQA or MLA attention + token-choice top-k MoE FFN
   (:mod:`repro_torch.models.moe`; optional shared experts, optional
   Arctic-style dense residual FFN);
 * ssm    — Mamba2 SSD blocks (attention-free);
-* hybrid — parallel attention + SSD heads per block (Hymba).
-
-The vlm/audio-frontend and encoder-decoder families raise
-``NotImplementedError`` naming their ROADMAP item.
+* hybrid — parallel attention + SSD heads per block (Hymba);
+* audio  — encoder-decoder: a bidirectional encoder over precomputed frame
+  embeddings, decoder blocks with cross-attention after self-attention.
 
 Params are the reference's dict of leaves, the L blocks STACKED on a leading
 axis, so they cross between the packages unchanged
 (:func:`repro_torch.convert.params_from_jax`); the blocks run as a Python
 loop over that axis. Computation is cast to ``cfg.dtype`` with float32
 softmax, norms and SSM state; params stay in their stored dtype. On CUDA
-tensors the full-sequence forward's GQA attention is the hand-written flash
-attention kernel (``kernels/ops.py:gqa_flash``) and its SSD scan the
-hand-written chunk-scan kernel (``ops.ssd_chunked_kernel``); on CPU tensors
-both compute their plain versions. Both go through ``autograd.Function`` s
-with plain backwards, so :func:`loss_fn` trains through the kernels under
-autograd and ``torch.func`` (the FL backends' ``vmap(grad)``). The decode
-path is plain PyTorch, as in the reference, and updates its cache in place.
+tensors the full-sequence forward's GQA attention (causal self-attention,
+the encoder's bidirectional self-attention, cross-attention) is the
+hand-written flash attention kernel (``kernels/ops.py:gqa_flash``) and its
+SSD scan the hand-written chunk-scan kernel (``ops.ssd_chunked_kernel``); on
+CPU tensors both compute their plain versions. Both go through
+``autograd.Function`` s with plain backwards, so :func:`loss_fn` trains
+through the kernels under autograd and ``torch.func`` (the FL backends'
+``vmap(grad)``). ``remat=True`` recomputes each block in the backward
+(:class:`_Remat`), under autograd and ``torch.func`` alike. The decode path
+is plain PyTorch, as in the reference, and updates its cache in place.
 MLA (DeepSeek-V2) is plain PyTorch in both paths, as in the reference: its
 q/k head dim (nope + rope, 192 at full width) is not the v head dim, which
 the flash kernel does not take.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch._C._functorch import (TransformType, get_unwrapped,
+                                 is_functorch_wrapped_tensor)
+from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -46,24 +52,27 @@ from repro_torch.models.attention import (decode_attention, mla_decode,
                                           mla_prefill, rope)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import ssd_decode_step
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
-           "decode_step", "layer_ids", "count_params", "Cache",
-           "check_supported", "token_nll", "with_moe_aux"]
+           "decode_step", "build_cross_cache", "layer_ids", "count_params",
+           "Cache", "check_supported", "token_nll", "with_moe_aux"]
 
 _F32 = torch.float32
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
+# a stacked leaf whose f32 draw would take more than this is drawn one
+# (a, b) matrix at a time: llava-next-34b's (60, 7168, 20480) FFN leaves
+# are 35.2 GB in f32. Every earlier arch's leaves stay under it (the
+# largest, command-r-35b's (40, 8192, 22528), is 29.5 GB), so they are
+# drawn whole, as before
+_WHOLE_DRAW_BYTES = 1 << 35
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not cover."""
-    if cfg.frontend != "none" or cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: vision/audio frontends and encoder-decoder stacks "
-            "are not ported yet (ROADMAP 1.13.4)")
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    """Raise ``NotImplementedError`` for a family the configs do not name."""
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}")
 
 
@@ -114,13 +123,16 @@ class _Init:
         return x.mul_(scale).to(device=self.device, dtype=dtype or self.dtype)
 
     def dense(self, shape, scale=None) -> torch.Tensor:
+        if 4 * math.prod(shape) > _WHOLE_DRAW_BYTES:
+            return self.matrices(shape, scale)
         return self.normal(shape, 1.0 / math.sqrt(shape[-2])
                            if scale is None else scale)
 
-    def experts(self, shape, scale=None) -> torch.Tensor:
-        """A stacked expert leaf (L, E, a, b) drawn one (layer, expert)
-        matrix at a time into its storage: at arctic-480b's width one f32
-        copy of a whole leaf of 2 blocks would be 35.7 GB."""
+    def matrices(self, shape, scale=None) -> torch.Tensor:
+        """A stacked leaf (..., a, b) drawn one (a, b) matrix at a time into
+        its storage: every expert leaf (at arctic-480b's width one f32 copy
+        of a whole leaf of 2 blocks would be 35.7 GB) and a dense leaf past
+        ``_WHOLE_DRAW_BYTES``."""
         scale = 1.0 / math.sqrt(shape[-2]) if scale is None else scale
         out = torch.empty(shape, dtype=self.dtype, device=self.device)
         if self.device.type != "meta":
@@ -168,9 +180,9 @@ def _init_moe(init: _Init, cfg: ArchConfig, L: int) -> dict:
     wg/wu (L, E, D, F) and wd (L, E, F, D)."""
     D, E, Fe = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
     return {"router": init.normal((L, D, E), 1.0 / math.sqrt(D), _F32),
-            "wg": init.experts((L, E, D, Fe)),
-            "wu": init.experts((L, E, D, Fe)),
-            "wd": init.experts((L, E, Fe, D), scale=1.0 / math.sqrt(Fe))}
+            "wg": init.matrices((L, E, D, Fe)),
+            "wu": init.matrices((L, E, D, Fe)),
+            "wd": init.matrices((L, E, Fe, D), scale=1.0 / math.sqrt(Fe))}
 
 
 def _init_ssm(init: _Init, cfg: ArchConfig, L: int) -> dict:
@@ -221,6 +233,15 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
         blocks["mlp"] = _init_mlp(init, cfg, L)
     params = {"embed": init.normal((V, D), 0.02), "blocks": blocks,
               "final_norm": init.full((D,), 1.0)}
+    if cfg.enc_layers:          # decoder cross-attention, then the encoder
+        Le = cfg.enc_layers
+        blocks["norm_x"] = init.full((L, D), 1.0)
+        blocks["xattn"] = _init_attn(init, cfg, L)
+        params["enc_blocks"] = {"norm1": init.full((Le, D), 1.0),
+                                "attn": _init_attn(init, cfg, Le),
+                                "norm2": init.full((Le, D), 1.0),
+                                "mlp": _init_mlp(init, cfg, Le)}
+        params["enc_norm"] = init.full((D,), 1.0)
     if not cfg.tie_embeddings:
         params["lm_head"] = init.normal((D, V), 0.02)
     return params
@@ -266,28 +287,43 @@ def _head(params: PyTree, cfg: ArchConfig, cdt) -> torch.Tensor:
 # block forward (full sequence: prefill)
 # ---------------------------------------------------------------------------
 
+def _proj(p, name: str, x, cdt, heads: int, hd: int):
+    """``x @ w{name} (+ b{name})`` split into heads: (B, S, heads, hd)."""
+    y = _mm(x, p["w" + name].to(cdt))
+    if "b" + name in p:
+        y = y + p["b" + name].to(cdt)
+    return y.reshape(*x.shape[:2], heads, hd)
+
+
 def _qkv(p, cfg: ArchConfig, h, cdt):
-    B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = _mm(h, p["wq"].to(cdt))
-    k = _mm(h, p["wk"].to(cdt))
-    v = _mm(h, p["wv"].to(cdt))
-    if "bq" in p:
-        q = q + p["bq"].to(cdt)
-        k = k + p["bk"].to(cdt)
-        v = v + p["bv"].to(cdt)
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    return (_proj(p, "q", h, cdt, H, hd), _proj(p, "k", h, cdt, KV, hd),
+            _proj(p, "v", h, cdt, KV, hd))
 
 
-def _attn_forward(p, cfg: ArchConfig, h, positions, cdt):
-    """Causal GQA over the full sequence. h: (B, S, D)."""
+def _cross_kv(p, cfg: ArchConfig, enc_out, cdt):
+    """Cross-attention keys and values (B, S_enc, KV, hd) of the encoder
+    output, without RoPE (as the reference)."""
+    return (_proj(p, "k", enc_out, cdt, cfg.n_kv, cfg.head_dim),
+            _proj(p, "v", enc_out, cdt, cfg.n_kv, cfg.head_dim))
+
+
+def _attn_forward(p, cfg: ArchConfig, h, positions, cdt, *, causal=True,
+                  kv_override=None):
+    """GQA over the full sequence, h: (B, S, D): self-attention (causal, or
+    bidirectional in the encoder), or cross-attention over the precomputed
+    ``kv_override`` (never causal, q without RoPE)."""
     B, S, _ = h.shape
-    q, k, v = _qkv(p, cfg, h, cdt)
-    if cfg.rope_mode != "none":
-        q = rope(q, positions, mode=cfg.rope_mode, theta=cfg.rope_theta)
-        k = rope(k, positions, mode=cfg.rope_mode, theta=cfg.rope_theta)
-    out = ops.gqa_flash(q, k, v, causal=True, window=cfg.window)
+    if kv_override is None:
+        q, k, v = _qkv(p, cfg, h, cdt)
+        if cfg.rope_mode != "none":
+            q = rope(q, positions, mode=cfg.rope_mode, theta=cfg.rope_theta)
+            k = rope(k, positions, mode=cfg.rope_mode, theta=cfg.rope_theta)
+    else:
+        q = _proj(p, "q", h, cdt, cfg.n_heads, cfg.head_dim)
+        k, v = kv_override
+    out = ops.gqa_flash(q, k, v, causal=causal and kv_override is None,
+                        window=cfg.window)
     return out.reshape(B, S, -1) @ p["wo"].to(cdt)
 
 
@@ -355,12 +391,14 @@ def _ffn_forward(p, cfg: ArchConfig, h, cdt, *, dropless: bool = False):
     return out, aux
 
 
-def _block_forward(p, cfg: ArchConfig, h, positions, cdt):
-    """One decoder block, full sequence. Returns (h, aux), aux None for a
-    block without MoE."""
+def _block_forward(p, cfg: ArchConfig, h, positions, cdt, *, enc_out=None,
+                   causal=True):
+    """One block, full sequence: a decoder block (cross-attention over
+    ``enc_out`` after self-attention when given) or, with ``causal=False``,
+    an encoder block. Returns (h, aux), aux None for a block without MoE."""
     x = _rms_norm(h, p["norm1"], cfg.norm_eps)
     if cfg.family == "hybrid":
-        a = _attn_forward(p["attn"], cfg, x, positions, cdt)
+        a = _attn_forward(p["attn"], cfg, x, positions, cdt, causal=causal)
         s = _ssm_forward(p["ssm"], cfg, x, cdt)
         h = h + 0.5 * (_rms_norm(a, p["fuse_na"], cfg.norm_eps)
                        + _rms_norm(s, p["fuse_ns"], cfg.norm_eps))
@@ -371,45 +409,155 @@ def _block_forward(p, cfg: ArchConfig, h, positions, cdt):
         h = h + mla_prefill(x, {k: v.to(cdt) for k, v in p["attn"].items()},
                             cfg, positions)[0]
     else:
-        h = h + _attn_forward(p["attn"], cfg, x, positions, cdt)
+        h = h + _attn_forward(p["attn"], cfg, x, positions, cdt,
+                              causal=causal)
+    if enc_out is not None:
+        xq = _rms_norm(h, p["norm_x"], cfg.norm_eps)
+        h = h + _attn_forward(p["xattn"], cfg, xq, positions, cdt,
+                              kv_override=_cross_kv(p["xattn"], cfg, enc_out,
+                                                    cdt))
     out, aux = _ffn_forward(p, cfg, _rms_norm(h, p["norm2"], cfg.norm_eps),
                             cdt)
     return h + out, aux
 
 
-def _under_torch_func() -> bool:
-    """True inside a ``torch.func`` transform (grad, vjp, vmap)."""
-    return torch._C._functorch.peek_interpreter_stack() is not None
+class _Remat(torch.autograd.Function):
+    """``_Remat.apply(fn, *args)`` is ``fn(*args)`` (a tuple of tensors)
+    without keeping its activations: the forward runs ``fn`` under no grad
+    and saves only its inputs; the backward re-runs it under
+    ``torch.func.vjp`` and applies the cotangents. The reference's
+    ``jax.checkpoint`` of a block. Its ``vmap`` rule is generated, so it
+    runs under ``torch.func.vmap(torch.func.grad(...))`` (the nested flash
+    and SSD Functions keep their own ``vmap`` rules, in the forward and in
+    the recompute), and the same ops in the same order give the same
+    values bit for bit as without it. A second derivative through it is
+    exact under autograd (``create_graph=True``), under nested
+    ``torch.func`` grads and under autograd over a ``torch.func.grad``; one
+    taken by ``torch.autograd.grad(create_graph=True)`` inside a single
+    ``torch.func.grad`` misses the block's terms, since that backward
+    cannot be told from ``torch.func.grad``'s own."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        # ``torch.func.grad`` runs the backward with ``create_graph=True``
+        # (grad mode on here) whether or not a second derivative follows,
+        # and recording the recompute would keep every block's activations
+        # alive to the end: so under one ``torch.func`` grad level the
+        # recompute runs under no grad (first order), while its own vjp
+        # keeps the caller's mode, so ATen takes the same paths (matmul's
+        # folding depends on it) and the grads are the same bit for bit.
+        # ``create_graph=True`` from autograd itself, grad of grad, or
+        # autograd tracking the inputs beneath a ``torch.func.grad`` asks
+        # for a second derivative: then the recompute is recorded
+        create_graph = torch.is_grad_enabled()
+        record = create_graph and (_grad_levels() != 1
+                                   or _tracked_beneath(ctx.saved_tensors))
+        with contextlib.nullcontext() if record else torch.no_grad():
+            _, vjp = torch.func.vjp(ctx.fn, *ctx.saved_tensors)
+            return (None, *vjp(cotangents, create_graph=create_graph))
+
+
+def _grad_levels() -> int:
+    """How many ``torch.func`` grad transforms (``grad``, ``vjp``,
+    ``jacrev``) are active around the caller."""
+    return sum(i.key() == TransformType.Grad
+               for i in retrieve_all_functorch_interpreters())
+
+
+def _tracked_beneath(tensors) -> bool:
+    """Whether autograd itself tracks one of ``tensors`` beneath the
+    ``torch.func`` transforms' wrappers."""
+    for t in tensors:
+        while is_functorch_wrapped_tensor(t):
+            t = get_unwrapped(t)
+        if t.requires_grad:
+            return True
+    return False
+
+
+def _run_block(p, cfg: ArchConfig, h, positions, cdt, *, enc_out=None,
+               causal=True, remat=False):
+    """:func:`_block_forward`, recomputed in the backward with ``remat``.
+    The recompute takes the block's leaves as they come (views of the
+    stacks, unbound once by :func:`_blocks`) and closes over ``cfg`` and
+    ``cdt``, no tensor: a tensor made under the caller's ``torch.func``
+    levels cannot enter the generated ``vmap`` rule's, so the positions are
+    made again inside (the same ``arange``). It returns a zero aux for a
+    block without MoE."""
+    if not remat:
+        return _block_forward(p, cfg, h, positions, cdt, enc_out=enc_out,
+                              causal=causal)
+    leaves = tree_leaves(p)
+    n = len(leaves)
+
+    def block(h, *rest):
+        out, aux = _block_forward(
+            tree_unflatten(p, list(rest[:n])), cfg, h,
+            torch.arange(h.shape[1], device=h.device), cdt,
+            enc_out=rest[n] if enc_out is not None else None, causal=causal)
+        return out, (torch.zeros((), dtype=_F32, device=out.device)
+                     if aux is None else aux)
+
+    extra = () if enc_out is None else (enc_out,)
+    return _Remat.apply(block, h, *leaves, *extra)
+
+
+def _run_encoder(params: PyTree, cfg: ArchConfig, frames: torch.Tensor, cdt,
+                 *, remat: bool = False) -> torch.Tensor:
+    """The bidirectional encoder over frame embeddings (B, S_enc, D), then
+    ``enc_norm``."""
+    h = frames.to(cdt)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for p in _blocks(params["enc_blocks"], cfg.enc_layers):
+        h = _run_block(p, cfg, h, positions, cdt, causal=False,
+                       remat=remat)[0]
+    return _rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
 def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
-            remat: bool = False, with_aux: bool = False):
-    """Logits (B, S, V) for a full sequence of tokens (B, S); with
+            frontend: Optional[torch.Tensor] = None, remat: bool = False,
+            with_aux: bool = False):
+    """Logits (B, S_out, V) for a full sequence of tokens (B, S); with
     ``with_aux``, ``(logits, aux)`` as the reference returns them: aux is
     the blocks' summed MoE load-balance loss (f32; 0 without MoE).
 
+    ``frontend`` (B, n_front, D): patch embeddings prepended to the text
+    (vision: S_out = n_front + S) or frame embeddings the encoder reads
+    (audio: S_out = S); ``None`` runs the text alone, as the reference.
     ``remat=True`` recomputes each block in the backward instead of keeping
-    its activations (the reference's ``jax.checkpoint`` of the block), via
-    ``torch.utils.checkpoint(use_reentrant=False)``. That works under
-    autograd; ``torch.func`` transforms cannot take its saved-tensor hooks,
-    so under one ``remat=True`` raises (ROADMAP 1.13.5)."""
+    its activations (:class:`_Remat`, the reference's ``jax.checkpoint`` of
+    the block; here the encoder's blocks too), under autograd and
+    ``torch.func`` alike, and second derivatives through it under either
+    alone (:class:`_Remat` has the one mix it does not take)."""
     check_supported(cfg)
-    if remat and _under_torch_func():
-        raise NotImplementedError(
-            "remat=True under torch.func (vmap / grad) is not supported: "
-            "torch.utils.checkpoint's saved-tensor hooks do not compose with "
-            "torch.func transforms (ROADMAP 1.13.5)")
     remat = remat and torch.is_grad_enabled()
     cdt = _dtype(cfg.dtype)
     h = _embed(params, tokens, cdt)
+    enc_out = None
+    if cfg.frontend == "vision" and frontend is not None:
+        h = torch.cat([frontend.to(cdt), h], dim=1)
+    elif cfg.frontend == "audio" and frontend is not None:
+        enc_out = _run_encoder(params, cfg, frontend, cdt, remat=remat)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=_F32, device=h.device)
     for p in _blocks(params["blocks"], cfg.L):
-        if remat:
-            h, a = checkpoint(_block_forward, p, cfg, h, positions, cdt,
-                              use_reentrant=False)
-        else:
-            h, a = _block_forward(p, cfg, h, positions, cdt)
+        # each decoder block reads the encoder output through an alias of
+        # its own, so the encoder's grad sums block by block, in the order
+        # the recomputed blocks (remat) hand theirs back
+        h, a = _run_block(p, cfg, h, positions, cdt, remat=remat,
+                          enc_out=None if enc_out is None
+                          else enc_out.view_as(enc_out))
         if a is not None:
             aux = aux + a
     h = _rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -418,11 +566,15 @@ def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def loss_fn(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, *, moe_aux_coef: float = 0.01,
-            remat: bool = False) -> torch.Tensor:
-    """Mean next-token CE over (B, S) tokens and labels, the log-softmax in
-    f32, plus ``moe_aux_coef * aux / L`` when the config routes."""
-    logits, aux = forward(params, cfg, tokens, remat=remat, with_aux=True)
+            labels: torch.Tensor, *, frontend: Optional[torch.Tensor] = None,
+            moe_aux_coef: float = 0.01, remat: bool = False) -> torch.Tensor:
+    """Mean next-token CE over the text's (B, S) tokens and labels (a
+    vision frontend's positions dropped), the log-softmax in f32, plus
+    ``moe_aux_coef * aux / L`` when the config routes."""
+    logits, aux = forward(params, cfg, tokens, frontend=frontend, remat=remat,
+                          with_aux=True)
+    if cfg.frontend == "vision" and frontend is not None:
+        logits = logits[:, frontend.shape[1]:]
     return with_moe_aux(token_nll(logits, labels).mean(), aux, cfg,
                         moe_aux_coef)
 
@@ -440,13 +592,14 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
 
 
-def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
+            frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill: full-sequence forward returning last-position logits (B, V).
 
     (As in the reference, the serve loop fills its cache through
     :func:`decode_step`; the prefill is the batched forward's compute.)
     """
-    return forward(params, cfg, tokens)[:, -1]
+    return forward(params, cfg, tokens, frontend=frontend)[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -457,6 +610,7 @@ class Cache(NamedTuple):
     kv: Optional[tuple] = None        # (k, v): (L, B, W_or_S, KV, hd)
     mla: Optional[tuple] = None       # (c_kv (L,B,S,c), k_pe (L,B,S,dr))
     ssm: Optional[tuple] = None       # (state (L,B,H,N,P), conv (L,B,W-1,C))
+    cross: Optional[tuple] = None     # (k, v): (L, B, S_enc, KV, hd)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, dtype=None,
@@ -486,11 +640,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, dtype=None,
     return Cache(kv=kv, mla=mla, ssm=ssm)
 
 
-def _attn_decode(p, cfg: ArchConfig, x, pos: int, k_c, v_c, cdt):
+def build_cross_cache(params: PyTree, cfg: ArchConfig,
+                      enc_out: torch.Tensor) -> tuple:
+    """Every decoder block's cross-attention keys and values of the encoder
+    output, stacked: (k, v) each (L, B, S_enc, KV, hd), in the compute
+    dtype; decode then never re-projects the encoder states."""
+    cdt = _dtype(cfg.dtype)
+    kvs = [_cross_kv(p["xattn"], cfg, enc_out, cdt)
+           for p in _blocks(params["blocks"], cfg.L)]
+    return tuple(torch.stack(t) for t in zip(*kvs))
+
+
+def _attn_decode(p, cfg: ArchConfig, x, pos: int, k_c, v_c, cdt, *,
+                 cross: bool = False):
     """Single-token GQA decode for one layer, x: (B, 1, D); writes this
     token's k, v into slot ``pos % W`` (rolling window) or ``pos`` of the
-    layer's caches in place."""
+    layer's caches in place. ``cross``: attend over every slot of the
+    cross cache (the encoder's positions), q without RoPE, writing
+    nothing."""
     B = x.shape[0]
+    if cross:
+        q = _proj(p, "q", x, cdt, cfg.n_heads, cfg.head_dim)
+        out = decode_attention(q, k_c, v_c, k_c.shape[1])
+        return _mm(out.reshape(B, 1, -1), p["wo"].to(cdt))
     q, k, v = _qkv(p, cfg, x, cdt)
     if cfg.rope_mode != "none":
         pvec = torch.full((1,), pos, device=x.device)
@@ -544,6 +716,8 @@ def _ssm_decode(p, cfg: ArchConfig, x, state, conv_hist, cdt):
 def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
                 token: torch.Tensor, pos: int):
     """One decode step. token: (B,) int; pos: the absolute position (int).
+    With ``cache.cross`` (:func:`build_cross_cache`) each decoder block
+    attends over the encoder output after self-attention.
 
     Returns (logits (B, V) f32, cache); the cache is updated in place.
     """
@@ -570,6 +744,11 @@ def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
             continue
         else:
             h = h + a
+        if cache.cross is not None:
+            h = h + _attn_decode(p["xattn"], cfg,
+                                 _rms_norm(h, p["norm_x"], cfg.norm_eps), pos,
+                                 cache.cross[0][l], cache.cross[1][l], cdt,
+                                 cross=True)
         h = h + _ffn_forward(p, cfg, _rms_norm(h, p["norm2"], cfg.norm_eps),
                              cdt, dropless=True)[0]
     h = _rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -584,17 +763,21 @@ def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
 def layer_ids(params: PyTree, cfg: ArchConfig) -> PyTree:
     """Pytree congruent with params mapping leaves to ADEL mask layers.
 
-    Blocks get their stacked index; the embedding joins layer 0 (reached
-    last); final norm + head join the last layer (reached first).
+    Blocks get their stacked index, decoder blocks offset by ``enc_layers``
+    (backprop reaches the decoder first, so the encoder is deeper: lower
+    ids); the embedding joins layer 0 (reached last); final norm, encoder
+    norm and head join the last layer (reached first).
     """
     last = cfg.n_blocks_total - 1
     ids: dict = {}
     for k, v in params.items():
-        if k == "blocks":
-            ids[k] = tree_map(lambda t: torch.arange(cfg.L, dtype=torch.int32,
-                                                     device=t.device), v)
+        if k in ("blocks", "enc_blocks"):
+            n, first = ((cfg.L, cfg.enc_layers) if k == "blocks"
+                        else (cfg.enc_layers, 0))
+            ids[k] = tree_map(lambda t: torch.arange(
+                first, first + n, dtype=torch.int32, device=t.device), v)
         elif k == "embed":
             ids[k] = 0
-        else:  # final_norm, lm_head
+        else:  # final_norm, enc_norm, lm_head
             ids[k] = last
     return ids

@@ -666,6 +666,9 @@ SSD_TOL = dict(rtol=1e-4, atol=1e-4)
     (1, 8, 1, 77, 77, 128, True, 0, "bhsd"),          # MQA, S < one tile
     (1, 2, 1, 200, 40, 64, True, 16, "bhsd"),         # rows that see no key
     (1, 4, 2, 700, 900, 128, False, 200, "bshd"),     # a window, not causal
+    (1, 16, 16, 512, 512, 64, False, 0, "bshd"),      # seamless encoder
+    (1, 4, 4, 512, 256, 64, False, 0, "bhsd"),        # seamless cross, Sq > Sk
+    (1, 14, 2, 1000, 1000, 128, True, 0, "bshd"),     # llava, G = 7, ragged
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd,
@@ -933,3 +936,70 @@ def test_lm_kernel_functions_grads_on_card(cuda, dtype):
             scale = max(1.0, float(r.float().abs().max()))
             assert _close(a, r, tol, tol * scale), \
                 float((a.float() - r.float()).abs().max())
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "llava-next-34b"])
+def test_frontend_prefill_on_card_matches_cpu(cuda, arch):
+    """A reduced vlm or audio model's prefill with its frontend on the card
+    (the flash kernel: the encoder's bidirectional self-attention, the
+    decoder's causal self- and cross-attention, or the patches prepended)
+    against the same prefill on the CPU, f32 with TF32 off: rtol = atol =
+    1e-4; one flash launch an attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 200), generator=gen)
+    front = 0.02 * torch.randn((2, cfg.n_frontend_tokens, cfg.d_model),
+                               generator=gen)
+    step = make_prefill_step(cfg)
+    ref = step(params, tokens, front)
+    before = flash_attention.launches
+    out = step(tree_map(lambda t: t.to(cuda), params), tokens.to(cuda),
+               front.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.enc_layers + cfg.L * (
+        2 if cfg.enc_layers else 1)
+    assert _close(out.cpu(), ref, 1e-4, 1e-4), (out.cpu() - ref).abs().max()
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "hymba-1.5b"])
+def test_remat_under_vmap_grad_on_card(cuda, arch):
+    """``remat=True`` under ``vmap(grad)`` over 3 clients on the card (the
+    recomputed blocks' flash and SSD kernels launched once more in the
+    backward, each call on the clients folded into B) against
+    ``remat=False`` on the same inputs: loss grads within 1e-5 of max(1,
+    max|grad|) (the same kernels and products; the card's reductions may
+    pick another order between the two runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch).reduced()
+    params = tr.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (3, 2, 24), generator=gen, device=cuda)
+    fr = None
+    if cfg.frontend != "none":
+        fr = 0.02 * torch.randn((3, 2, cfg.n_frontend_tokens, cfg.d_model),
+                                generator=gen, device=cuda)
+    per_forward = cfg.enc_layers + cfg.L * (2 if cfg.enc_layers else 1)
+    grads, launched = [], []
+    for remat in (False, True):
+        before = flash_attention.launches
+        grads.append(tree_leaves(torch.func.vmap(torch.func.grad(
+            lambda p, t, f: tr.loss_fn(p, cfg, t, t, frontend=f,
+                                       remat=remat)),
+            in_dims=(None, 0, None if fr is None else 0))(params, tok, fr)))
+        torch.cuda.synchronize()
+        launched.append(flash_attention.launches - before)
+    assert launched == [per_forward, 2 * per_forward]
+    for a, b in zip(*grads):
+        scale = max(1.0, float(b.abs().max()))
+        assert _close(a, b, 1e-5, 1e-5 * scale), float((a - b).abs().max())

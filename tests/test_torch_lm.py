@@ -94,11 +94,18 @@ def test_configs_match_the_reference():
 @pytest.mark.parametrize("arch,item", [
     ("llava-next-34b", "1.13.4"), ("seamless-m4t-medium", "1.13.4")])
 def test_uncovered_families_name_their_roadmap_item(arch, item):
+    """The vlm and audio families, once refused naming ROADMAP ``item``,
+    are ported: init and the prefill step with its trailing frontend run
+    (their parity with the reference is ``tests/test_torch_encdec.py``)."""
+    assert item == "1.13.4"
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ptr.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        make_prefill_step(cfg)
+    ptr.check_supported(cfg)
+    params = ptr.init_params(torch.Generator(), cfg, device="cpu")
+    tok = torch.zeros((2, 4), dtype=torch.int64)
+    fr = torch.zeros((2, cfg.n_frontend_tokens, cfg.d_model))
+    logits = make_prefill_step(cfg)(params, tok, fr)
+    assert tuple(logits.shape) == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------

@@ -292,8 +292,9 @@ def test_lm_loss_grad_matches_reference(arch, vmapped):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_under_autograd_equals_no_remat(arch):
-    """``forward(remat=True)`` (``torch.utils.checkpoint`` a block) gives
-    the same loss and grads as ``remat=False`` under autograd."""
+    """``forward(remat=True)`` (each block recomputed in the backward,
+    ``models/transformer.py:_Remat``) gives the same loss and grads as
+    ``remat=False`` under autograd."""
     cfg = get_config(arch).reduced()
     params = params_from_jax(jax.tree.map(np.asarray, rtr.init_params(
         jax.random.PRNGKey(0), ref_get_config(arch).reduced())), "cpu")
@@ -311,17 +312,27 @@ def test_remat_under_autograd_equals_no_remat(arch):
 
 
 def test_remat_under_torch_func_names_its_roadmap_item():
-    """``torch.func`` cannot take the checkpoint's saved-tensor hooks: the
-    model and the spatial train step raise, never ignore ``remat``."""
+    """``remat=True`` under ``torch.func``, once refused naming ROADMAP
+    1.13.5, now composes: ``torch.func.grad`` of the loss and the spatial
+    train step equal ``remat=False`` bit for bit; under inference the
+    forward runs as is."""
     cfg = get_config("qwen1.5-4b").reduced()
     params = ptr.init_params(torch.Generator().manual_seed(0), cfg,
                              device="cpu")
-    tok = torch.zeros((2, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.13.5"):
-        torch.func.grad(lambda p: ptr.loss_fn(p, cfg, tok, tok,
-                                              remat=True))(params)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.13.5"):
-        make_train_step(cfg, U=2, mode="spatial", remat=True)
+    tok = torch.randint(0, cfg.vocab, (2, 8),
+                        generator=torch.Generator().manual_seed(1))
+    grads = [torch.func.grad(lambda p: ptr.loss_fn(p, cfg, tok, tok,
+                                                   remat=remat))(params)
+             for remat in (False, True)]
+    for a, b in zip(*map(tree_leaves, grads)):
+        assert torch.equal(a, b)
+    U = 2
+    args = (tok.expand(U, 2, 8), tok.expand(U, 2, 8), torch.ones((U, cfg.L)),
+            torch.zeros((cfg.L,)), 0.1)
+    steps = [make_train_step(cfg, U=U, mode="spatial", remat=remat)(
+        params, *args) for remat in (False, True)]
+    for a, b in zip(*map(tree_leaves, steps)):
+        assert torch.equal(a, b)
     with torch.inference_mode():      # nothing to recompute: runs as is
         logits = ptr.forward(params, cfg, tok, remat=True)
     assert logits.shape == (2, 8, cfg.padded_vocab)

@@ -1987,12 +1987,12 @@ def hymba_prefill(torch) -> dict:
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = sorted(walls)[1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[hymba prefill] B={B} S={S} logits={tuple(logits.shape)} finite "
           f"launches flash_attention={launches['flash_attention']} "
           f"ssd_scan={launches['ssd_scan']} wall_ms={[round(w, 3) for w in walls]}"
           f" median_wall_ms={wall:.3f} prefill_tok_per_s={B * S / wall * 1e3:.1f}"
-          f" peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
-          flush=True)
+          f" peak_mem_gb={peak_gb:.2f}", flush=True)
 
     with device_profile(torch, cpu=True) as prof:
         torch.cuda.synchronize()          # the spin kernels, outside t0
@@ -2025,12 +2025,15 @@ def hymba_prefill(torch) -> dict:
     check(busy > 0, "the profiler saw no device time")
     check(ssd_launches == 4 * cfg.L,
           f"{ssd_launches} SSD kernel launches, not 4 phases x {cfg.L} blocks")
+    arg_bytes = param_bytes(params) + tokens.nbytes
     del params, tokens, logits
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_ms": wall, "kernel_ms": mine,
             "busy_ms": busy, "direct_copy_launches": n_copies,
             "tok_per_s": B * S / wall * 1e3,
-            "idle_share": 1 - busy / prof_wall}
+            "idle_share": 1 - busy / prof_wall, "peak_gb": peak_gb,
+            "card": {"arch": cfg.name, "B": B, "seq_len": S,
+                     "front": "float32", "arg_bytes": arg_bytes}}
 
 
 def hymba_serve(torch) -> dict:
@@ -2702,13 +2705,26 @@ def prefill_phase(torch, tag: str, cfg, params, B: int = MOE_PREFILL["B"],
         print(f"[{tag} profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     check(busy > 0, f"{tag}: the profiler saw no device time")
+    arg_bytes = (param_bytes(params) + tokens.nbytes
+                 + sum(t.nbytes for t in extra))
     del tokens, logits, extra
     return {"launches": launches, "flash_shapes": flash_shapes,
             "wall_ms": wall, "peak_gb": peak_gb,
+            # the dry run's shape: a vision prefill's seq_len counts the
+            # patches too (launch/specs.py:text_len)
+            "card": {"arch": cfg.name, "B": B, "seq_len": S + (
+                n_front if cfg.frontend == "vision" else 0),
+                "front": "float32", "arg_bytes": arg_bytes},
             "tok_per_s": read / wall * 1e3,
             "text_tok_per_s": B * S / wall * 1e3, "busy_ms": busy,
             "idle_share": 1 - busy / prof_wall, "flash_profiled": flash,
             "split": split}
+
+
+def param_bytes(params) -> int:
+    """Bytes of a param tree as it lies on the card."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.nbytes for t in tree_leaves(params))
 
 
 def init_bf16(torch, tag: str, cfg, seed: int):
@@ -3041,8 +3057,8 @@ AGREE_TEXT = 64
 # compute, U clients of b rows of seq tokens, frames (U, b, 1024, 1024)
 ENCDEC_TRAIN = dict(U=2, b=2, seq=256)
 # [remat]: hymba-1.5b at full width, one client of 8 rows of 256 tokens in
-# both layouts; on an H100 80GB HBM3 the spatial step without remat takes
-# 68.6 GB above its start there (scripts/probe_remat_guard.py --rows 8)
+# both layouts (on an H100 80GB HBM3 the spatial step without remat takes
+# ~20 GB above its start)
 REMAT_ROWS = 8
 REMAT_SEQ = 256
 # calibrate_constants on the card against the same call on the CPU
@@ -3480,6 +3496,251 @@ def calibrate_phase(torch, vgg: dict) -> dict:
     return {"mlp_rel_diff": rel, "vgg_seconds": secs, "vgg_G2": out.G2}
 
 
+# ---------------------------------------------------------------------------
+# the launch and tooling layer: the dry run on a fake production mesh, its
+# count against the card, and the examples
+# ---------------------------------------------------------------------------
+
+# [dryrun]: every arch x prefill_32k and decode_32k at full production width
+# on the fake 16 x 16 mesh, and train_4k (temporal) of these archs through
+# the cost probe's four reduced-depth probes; tasks spread over worker
+# processes on the host's cores (meta tensors: no card, no memory)
+DRYRUN_SHAPES = ("prefill_32k", "decode_32k")
+DRYRUN_TRAIN_ARCHS = ("yi-6b", "hymba-1.5b")
+DRYRUN_WORKERS = 8
+DRYRUN_TIMEOUT_S = 400
+# [examples]: the port's serve example at full width (the reference
+# example's default arch); mamba2-370m's 48 SSD blocks through ssd_scan
+EXAMPLE_SERVE_ARCH = "mamba2-370m"
+
+
+def dryrun_task(task: tuple) -> dict:
+    """One dry-run count in a worker process (spawned: imports nothing of
+    the parent's state), on a fake world of its own: ``("combo", arch,
+    shape)`` on the production mesh; ``("probe", arch, shape, U, l)``, a
+    reduced-depth temporal train step of U clients at the production
+    per-client batch; ``("card", tag, arch, B, S, front_dtype)``, a prefill
+    on a 1 x 1 mesh at the shape and dtypes a card phase runs (S its
+    ``InputShape.seq_len``)."""
+    import dataclasses
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import costprobe, dryrun
+    from repro_torch.launch.mesh import (batch_shards, make_production_mesh)
+
+    t0 = time.perf_counter()
+    kind = task[0]
+    if kind == "card":
+        _, tag, arch, B, S, front = task
+        rec = dryrun.run_combo(
+            arch, f"card_{tag}", mesh=dryrun.make_mesh((1, 1), ("data",
+                                                                "model")),
+            shape=InputShape(f"card_{tag}", S, B, "prefill"), verbose=False,
+            detail=True, frontend_dtype=getattr(torch, front))
+    else:
+        dryrun.open_world(256)
+        mesh = make_production_mesh()
+        if kind == "combo":
+            rec = dryrun.run_combo(task[1], task[2], mesh=mesh, verbose=False,
+                                   detail=True)
+        else:
+            _, arch, shape_name, u, l = task
+            shape = get_shape(shape_name)
+            U_star = max(shape.global_batch // batch_shards(mesh), 1)
+            cfg = costprobe._reduced_cfg(get_config(arch), l)
+            rec = dryrun.run_combo(
+                arch, shape_name, mesh=mesh, cfg=cfg, verbose=False,
+                detail=True, shape=dataclasses.replace(
+                    shape, global_batch=u * (shape.global_batch // U_star)))
+            rec["U_star"] = U_star
+    rec["task"] = list(task)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def dryrun_line(tag: str, rec: dict) -> str:
+    coll = rec["collective_bytes_per_device"]
+    return (f"[{tag}] {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+            f"({rec['step']}): flops/dev={rec['flops_per_device']:.6e} "
+            f"(products {rec['detail']['flops_by_kind']['products']:.6e}) "
+            f"bytes/dev={rec['bytes_per_device']:.6e} coll/dev="
+            + " ".join(f"{k}:{v:.6e}" for k, v in coll.items()
+                       if k not in ("total", "count"))
+            + f" total:{coll['total']:.6e} count:{coll['count']} dominant="
+            f"{rec['roofline']['dominant']} traced_s={rec['seconds']:.1f} "
+            f"regathered={rec['detail']['regathered_ops']}")
+
+
+def run_dryrun_tasks(tasks: list) -> list:
+    """The tasks over ``DRYRUN_WORKERS`` spawned processes, longest first
+    as listed; every worker is stopped before this returns."""
+    import concurrent.futures
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(DRYRUN_WORKERS, len(tasks)), mp_context=ctx)
+    try:
+        import traceback
+        futures = [pool.submit(dryrun_task, t) for t in tasks]
+        out, failed = [], []
+        for t, f in zip(tasks, futures):
+            try:
+                out.append(f.result(timeout=DRYRUN_TIMEOUT_S))
+            except Exception as exc:    # each worker's traceback, then fail
+                print(f"chip_smoke: dryrun task {t} failed:\n"
+                      + "".join(traceback.format_exception(exc)),
+                      file=sys.stderr, flush=True)
+                failed.append(f"{t}: {type(exc).__name__}: {exc}")
+        check(not failed, f"dryrun: {len(failed)} tasks failed: {failed}")
+        return out
+    finally:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            if proc.is_alive():
+                proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def dryrun_phases(torch, cards: dict) -> None:
+    """``[dryrun]``: every arch x ``DRYRUN_SHAPES`` on the fake 16 x 16
+    production mesh at full width, and ``train_4k`` (temporal) of
+    ``DRYRUN_TRAIN_ARCHS`` extrapolated from the cost probe's four
+    reduced-depth probes (``launch/costprobe.py``); a combo that raises
+    fails the phase. ``[dryrun vs card]``: the prefills this script timed
+    on the card (``cards``: tag -> arch, B, S, frontend dtype, median wall,
+    device-busy ms, peak and the bytes of the params and inputs on the
+    card), each counted on a 1 x 1 fake mesh: FLOPs, their share of the
+    bf16 peak over the busy time, and the argument bytes against the
+    card's, which must be equal."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import costprobe, dryrun
+
+    tasks = [("card", tag, c["arch"], c["B"], c["seq_len"], c["front"])
+             for tag, c in cards.items()]
+    tasks += [("combo", arch, shape) for arch in ARCHS
+              for shape in DRYRUN_SHAPES]
+    tasks += [("probe", arch, "train_4k", u, l) for arch in DRYRUN_TRAIN_ARCHS
+              for u, l in costprobe.TRAIN_PROBES]
+    # the SSD archs' prefills (a chunk loop a block) take longest: first
+    slow = [("combo", arch, "prefill_32k")
+            for arch in ("mamba2-370m", "hymba-1.5b")]
+    tasks = slow + [t for t in tasks if t not in slow]
+    t0 = time.perf_counter()
+    recs = run_dryrun_tasks(tasks)      # a combo that raises fails the phase
+    wall = time.perf_counter() - t0
+    by_task = {tuple(r["task"]): r for r in recs}
+    for t in tasks:
+        if t[0] == "combo":
+            print(dryrun_line("dryrun", by_task[t]), flush=True)
+    for arch in DRYRUN_TRAIN_ARCHS:
+        samples = {f"U{t[3]}_L{t[4]}": {
+            "flops": float(r["flops_per_device"]),
+            "bytes": float(r["bytes_per_device"]),
+            "coll": float(r["collective_bytes_per_device"]["total"])}
+            for t, r in by_task.items() if t[0] == "probe" and t[1] == arch}
+        U_star = next(r["U_star"] for r in recs if r["task"][0] == "probe"
+                      and r["task"][1] == arch)
+        cfg = ARCHS[arch]
+        est = costprobe._train_extrapolation(samples, U_star, cfg.L)
+        secs = sum(r["seconds"] for r in recs if r["task"][0] == "probe"
+                   and r["task"][1] == arch)
+        roof = dryrun.roofline(est["flops"], est["bytes"], est["coll"])
+        print(f"[dryrun] {arch} x train_4k x 16x16 (train_step, temporal, "
+              f"U={U_star} L={cfg.L}, from probes (U, l) in "
+              f"{list(costprobe.TRAIN_PROBES)}): flops/dev={est['flops']:.6e}"
+              f" bytes/dev={est['bytes']:.6e} coll/dev={est['coll']:.6e} "
+              f"dominant={roof['dominant']} traced_s={secs:.1f} (4 probes)",
+              flush=True)
+    card = card_line()
+    for tag, c in cards.items():
+        rec = by_task[("card", tag, c["arch"], c["B"], c["seq_len"],
+                       c["front"])]
+        flops = rec["flops_per_device"]
+        prod = rec["detail"]["flops_by_kind"]["products"]
+        args = rec["memory"]["argument_size_in_bytes"]
+        share = flops / (c["busy_ms"] / 1e3) / dryrun.PEAK_FLOPS
+        print(f"[dryrun vs card] {tag} {c['arch']} prefill B={c['B']} "
+              f"seq_len={c['seq_len']} text={rec['seq']} (1 x 1 mesh): "
+              f"flops={flops:.6e} (products "
+              f"{prod:.6e}) argument_bytes={args} card_argument_bytes="
+              f"{c['arg_bytes']} median_wall_ms={c['wall_ms']:.3f} "
+              f"device_busy_ms={c['busy_ms']:.3f} peak_mem_gb="
+              f"{c['peak_gb']:.2f} flops/busy/989 TFLOP/s={share:.4f} "
+              f"flops/wall/989 TFLOP/s="
+              f"{flops / (c['wall_ms'] / 1e3) / dryrun.PEAK_FLOPS:.4f} "
+              f"traced_s={rec['seconds']:.1f} card: {card}",
+              flush=True)
+        check(args == c["arg_bytes"],
+              f"dryrun vs card {tag}: argument bytes {args} != the card's "
+              f"{c['arg_bytes']}")
+        check(prod > 0, f"dryrun vs card {tag}: no products counted")
+    print(f"[dryrun] {len(tasks)} tasks on {DRYRUN_WORKERS} worker processes"
+          f" in {wall:.1f} s (constants: PEAK_FLOPS={dryrun.PEAK_FLOPS:g} "
+          f"HBM_BW={dryrun.HBM_BW:g} ICI_BW={dryrun.ICI_BW:g})", flush=True)
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch) -> None:
+    """``examples/torch_quickstart.py`` on the card through its ``main``
+    (ADEL above chance, within its budget), then
+    ``examples/torch_serve_llm.py --arch mamba2-370m --full`` (the
+    reference example's default arch, whole, at full width): its batched
+    prefill through ``ssd_scan`` (one launch a block), the decode's
+    tokens/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    t0 = time.perf_counter()
+    hist = load_example("torch_quickstart").main([])
+    quick_s = time.perf_counter() - t0
+    acc = {k: h.accuracy[-1] for k, h in hist.items()}
+    print(f"[examples] torch_quickstart.py on the card: final accuracy "
+          f"{acc} wall_s={quick_s:.3f}", flush=True)
+    check(acc["adel"] > 0.1, f"quickstart example: ADEL at {acc['adel']}")
+    check(all(h.times[-1] <= 60.0 * 1.001 for h in hist.values()),
+          "quickstart example: simulated clock over its budget")
+    cfg = get_config(EXAMPLE_SERVE_ARCH)
+    counters = lm_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = load_example("torch_serve_llm").main(
+        ["--arch", EXAMPLE_SERVE_ARCH, "--full"])
+    serve_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[examples] torch_serve_llm.py --arch {EXAMPLE_SERVE_ARCH} --full "
+          f"({cfg.L} blocks, d_model {cfg.d_model}): prefill "
+          f"{out['prefill_tok_per_s']:.1f} tok/s, decode "
+          f"{out['tok_per_s']:.2f} tok/s, first token agrees in "
+          f"{out['first_token_agree']} of 4 rows, launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items())
+          + f" peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"wall_s={serve_s:.3f}", flush=True)
+    # two prefills (warm-up and timed) through the kernel, one a block
+    check(launches["ssd_scan"] == 2 * cfg.L,
+          f"serve example: {launches['ssd_scan']} ssd_scan launches, not "
+          f"{2 * cfg.L}")
+    check(np_shape(out["generated"]) == (4, 48),
+          f"serve example: generated {np_shape(out['generated'])}")
+    torch.cuda.empty_cache()
+
+
+def np_shape(rows) -> tuple:
+    return (len(rows), len(rows[0]) if rows else 0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3546,6 +3807,14 @@ def main() -> int:
     llava = llava_models(torch)
     remat_phase(torch)
     calibrate_phase(torch, vgg)
+    examples_phase(torch)
+    cards = {tag: {**pre["card"], "wall_ms": pre["wall_ms"],
+                   "busy_ms": pre["busy_ms"], "peak_gb": pre["peak_gb"]}
+             for tag, pre in (("hymba", prefill),
+                              ("deepseek", moe["deepseek_prefill"]),
+                              ("seamless", encdec["prefill"]),
+                              ("llava", llava["prefill"]))}
+    dryrun_phases(torch, cards)
 
     replaces = {"adel_agg": "src/repro/kernels/adel_agg.py:34",
                 "adel_agg_q8": "src/repro/kernels/adel_agg.py:76"}

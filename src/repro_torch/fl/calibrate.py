@@ -11,7 +11,8 @@ Algorithm 1 (server-side, before round 1):
   G^2       ~= max_u E_i ||grad F_u(w_1; i_ref)||^2            (A3)
 
 where i_ref is a reference batch of size ``g_ref_batch``. The per-sample
-gradients are one ``torch.func.vmap(torch.func.grad)`` call a client.
+gradients are one ``torch.func.vmap`` of a gradient
+(:func:`repro_torch.autodiff.grad`) a client.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import autodiff
 from repro_torch.core.types import AnalysisConfig
 from repro_torch.tree import tree_leaves
 
@@ -35,7 +37,7 @@ def _flat_grad(loss_fn, params: PyTree, x: torch.Tensor,
     order."""
     n = y.shape[0]
     w = torch.full((n,), 1.0 / n, dtype=torch.float32, device=y.device)
-    g = torch.func.grad(loss_fn)(params, x, y, w)
+    g = autodiff.grad(loss_fn)(params, x, y, w)
     return torch.cat([t.reshape(-1) for t in tree_leaves(g)])
 
 

@@ -7,8 +7,10 @@ delta ``delta_u = w_t - w_u``. Depth-limited backprop is simulated by
 masking deltas per layer at aggregation time, which is identical to
 truncating the backward pass.
 
-The per-client deltas of a cohort come from ``torch.func.grad`` under
-``torch.func.vmap`` over the leading client axis.
+The per-client deltas of a cohort come from a gradient under
+``torch.func.vmap`` over the leading client axis: ``torch.func.grad``'s
+values through :func:`repro_torch.autodiff.grad`, which records its
+backward only when something can differentiate the delta.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import autodiff
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["local_update", "batched_client_deltas", "sample_client_batches"]
@@ -42,7 +45,7 @@ def local_update(loss_fn: Callable, params: PyTree, x: torch.Tensor,
 
     p = params
     for _ in range(local_iters):
-        g = torch.func.grad(step_loss)(p)
+        g = autodiff.grad(step_loss)(p)
         p = tree_map(lambda w, gg: w - eta * gg, p, g)
     return tree_map(lambda w0, w1: w0 - w1, params, p)
 

@@ -35,7 +35,8 @@ def run_federated(model: ModelAPI, policy: Policy, cfg: AnalysisConfig,
                   compression=None, agg_impl: str | None = None,
                   on_round=None, tracer=None,
                   init_params: PyTree | None = None, draws=None,
-                  replan=None, device=None) -> tuple[PyTree, History]:
+                  replan=None, verbose: bool = False,
+                  device=None) -> tuple[PyTree, History]:
     """Run up to R rounds at learning rates ``cfg.eta``, stopping when the
     simulated clock would exceed T_max. Client arrays are numpy arrays or
     tensors, moved to ``device`` (the card unless the caller passes
@@ -51,8 +52,8 @@ def run_federated(model: ModelAPI, policy: Policy, cfg: AnalysisConfig,
     counters and the clock-model ledger into ``History.telemetry``.
     ``replan`` (None | trigger name | :class:`repro_torch.core.replan.
     ReplanConfig`) re-solves the remaining horizon mid-run (ADEL only).
-    ``seed``, ``on_round``, ``draws`` and ``init_params`` are those of
-    :meth:`RoundRuntime.run`."""
+    ``seed``, ``on_round``, ``draws``, ``init_params`` and ``verbose``
+    (print each eval and replan) are those of :meth:`RoundRuntime.run`."""
     dev = resolve_device(device)
     # largest batch any client can be assigned under the policy
     s_max = max(min(probe_s_max(policy, cfg.R), int(client_y.shape[1])), 2)
@@ -65,4 +66,4 @@ def run_federated(model: ModelAPI, policy: Policy, cfg: AnalysisConfig,
                        s_max=s_max, test_x=test_x, test_y=test_y, seed=seed,
                        eval_every=eval_every, on_round=on_round,
                        init_params=init_params, draws=draws,
-                       replan=replan)
+                       replan=replan, verbose=verbose)

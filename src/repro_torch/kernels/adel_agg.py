@@ -30,7 +30,9 @@ share the table code (:func:`_fold_grouped`); the block map is memoised.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it computes the plain version (an einsum in f32), which is also what
-``chip_smoke.py`` holds each kernel against on the card. Each wrapper
+``chip_smoke.py`` holds each kernel against on the card; on a ``meta``
+tensor (the dry run, ``launch/dryrun.py``) it takes the plain version's
+shapes and computes nothing. Each wrapper
 counts its launches in ``.launches``: the grouped wrappers count their
 launches, one per table.
 """
@@ -42,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import PLAIN_DEVICES, load_library
 
 __all__ = ["adel_agg", "adel_agg_q8", "adel_agg_plain", "adel_agg_q8_plain",
            "adel_agg_grouped", "adel_agg_grouped_plain", "adel_agg_q8_grouped",
@@ -118,10 +120,10 @@ def _kernel(name: str):
 
 def adel_agg(grads: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
     """grads (U, L, F) f32/bf16, coeff (U, L) -> (L, F) in grads' dtype."""
-    if grads.device.type == "cpu":
+    if grads.device.type in PLAIN_DEVICES:
         return adel_agg_plain(grads, coeff)
     if grads.device.type != "cuda":
-        raise ValueError(f"adel_agg runs on CUDA or CPU, not {grads.device}")
+        raise ValueError(f"adel_agg runs on CUDA, CPU or meta, not {grads.device}")
     U, L, F = _check(grads, (coeff,), (torch.float32, torch.bfloat16))
     c = _f32(coeff)
     with torch.cuda.device(grads.device):
@@ -136,10 +138,10 @@ def adel_agg(grads: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
 def adel_agg_q8(q: torch.Tensor, scales: torch.Tensor,
                 coeff: torch.Tensor) -> torch.Tensor:
     """q (U, L, F) int8, scales and coeff (U, L) -> (L, F) f32."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return adel_agg_q8_plain(q, scales, coeff)
     if q.device.type != "cuda":
-        raise ValueError(f"adel_agg_q8 runs on CUDA or CPU, not {q.device}")
+        raise ValueError(f"adel_agg_q8 runs on CUDA, CPU or meta, not {q.device}")
     U, L, F = _check(q, (scales, coeff), (torch.int8,))
     s, c = _f32(scales), _f32(coeff)
     with torch.cuda.device(q.device):
@@ -403,10 +405,10 @@ def adel_agg_grouped(leaves: list, ids: list, coeff: torch.Tensor) -> list:
     if not leaves:
         return []
     dev = leaves[0].device
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return adel_agg_grouped_plain(leaves, ids, coeff)
     if dev.type != "cuda":
-        raise ValueError(f"adel_agg_grouped runs on CUDA or CPU, not {dev}")
+        raise ValueError(f"adel_agg_grouped runs on CUDA, CPU or meta, not {dev}")
     _check_leaves("adel_agg_grouped", leaves, coeff,
                   (torch.float32, torch.bfloat16))
     return _fold_grouped(leaves, ids, coeff, leaves[0].dtype,
@@ -425,10 +427,10 @@ def adel_agg_q8_grouped(qs: list, scales: list, ids: list,
     if not qs:
         return []
     dev = qs[0].device
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return adel_agg_q8_grouped_plain(qs, scales, ids, coeff)
     if dev.type != "cuda":
-        raise ValueError(f"adel_agg_q8_grouped runs on CUDA or CPU, not {dev}")
+        raise ValueError(f"adel_agg_q8_grouped runs on CUDA, CPU or meta, not {dev}")
     _check_leaves("adel_agg_q8_grouped", qs, coeff, (torch.int8,))
     if len(scales) != len(qs):
         raise ValueError(f"{len(scales)} scales for {len(qs)} leaves")

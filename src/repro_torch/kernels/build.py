@@ -22,10 +22,16 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "library_path",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "PLAIN_DEVICES",
+           "library_path",
            "ptxas_report", "build", "build_all", "load_library"]
 
 SOURCES = ("adel_agg", "flash_attention", "ssd_scan")
+
+# the device types on which a kernel's wrapper computes its plain version:
+# the CPU (the tests), and ``meta`` (the dry run's shapes; nothing is
+# computed there). A CUDA tensor launches the kernel; any other device raises
+PLAIN_DEVICES = ("cpu", "meta")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

@@ -18,7 +18,11 @@ layout. Bound on an H100 SXM: operations (4 * hd flops per visible
 
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it computes :func:`flash_attention_plain`, which ``chip_smoke.py`` also
-holds the kernels against on the card. ``flash_attention.launches`` counts
+holds the kernels against on the card. On a ``meta`` tensor (the dry run,
+``launch/dryrun.py``) it takes the plain version's shapes and computes
+nothing; the plain version forms every (query, key) score and masks it, so
+the dry run counts a causal attention as the full Sq x Sk product, as the
+reference's count of its jnp attention does. ``flash_attention.launches`` counts
 the launches, and ``flash_attention.shapes`` the same launches by problem
 ``(B, H, KV, Sq, Sk, hd, causal, window)``.
 
@@ -37,7 +41,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import PLAIN_DEVICES, load_library
 from repro_torch.models.attention import visible_mask
 
 __all__ = ["flash_attention", "flash_attention_plain",
@@ -140,10 +144,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, H, Sq, hd); k, v (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's dtype,
     laid out as q is where q is dense (a (B, S, H, hd) view in, one out)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, not {q.device}")
+        raise ValueError(f"flash_attention runs on CUDA, CPU or meta, not {q.device}")
     _check(q, k, v, window)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]

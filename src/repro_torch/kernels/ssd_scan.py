@@ -22,7 +22,10 @@ scratch of :func:`scratch_floats` floats from ``torch.empty``.
 On a CUDA tensor the wrapper launches the kernels or raises; on a CPU tensor
 it computes :func:`ssd_scan_plain` (the chunked SSD algorithm of
 ``models/ssm.py``, in f32), which ``chip_smoke.py`` also holds the kernels
-against on the card. ``ssd_scan.launches`` counts the calls that launched
+against on the card. On a ``meta`` tensor (the dry run,
+``launch/dryrun.py``) it takes the plain version's shapes and computes
+nothing; the within-chunk term is counted as the full Q x Q product, as
+the reference's count of its jnp ``ssd_chunked`` does. ``ssd_scan.launches`` counts the calls that launched
 the three-phase scan (one per call, whatever its four launches).
 
 :class:`SSDScan` is the wrapper under autograd and ``torch.func``: its
@@ -39,7 +42,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import PLAIN_DEVICES, load_library
 from repro_torch.kernels.flash_attention import fold_vmapped
 from repro_torch.models.ssm import chunk_scan
 
@@ -126,10 +129,10 @@ def ssd_scan(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
     """xdt (BH, S, P) or (G, r, S, P), la (BH, S) or (G, r, S), b, c (G, S,
     N), all f32 -> y f32 of xdt's shape and strides."""
-    if xdt.device.type == "cpu":
+    if xdt.device.type in PLAIN_DEVICES:
         return ssd_scan_plain(xdt, la, b, c, chunk=chunk)
     if xdt.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on CUDA or CPU, not {xdt.device}")
+        raise ValueError(f"ssd_scan runs on CUDA, CPU or meta, not {xdt.device}")
     BH, G, S, P, N, Q = _check(xdt, la, b, c, chunk)
     xs = scan_strides(xdt, G, features=True)
     ls = scan_strides(la, G, features=False)

@@ -13,8 +13,10 @@ Two client layouts:
   one client's gradient at a time (``torch.autograd.grad``), folded with
   its coefficient row into an f32 accumulator, so peak memory is one
   gradient pytree whatever U (one fold launch a client).
-* ``spatial`` — ``torch.func.vmap(torch.func.grad)`` over the client axis
-  and one fold launch for the round.
+* ``spatial`` — ``torch.func.vmap`` of a client's gradient over the client
+  axis (:func:`repro_torch.autodiff.grad`: ``torch.func.grad``'s values,
+  the backward recorded only when something can differentiate it) and one
+  fold launch for the round.
 
 ``remat=True`` (the default, as the reference's) recomputes each block in
 the backward in both layouts (``models/transformer.py:_Remat``).
@@ -34,6 +36,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import autodiff
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.aggregation import (aggregate_with_coeffs,
                                           layer_coefficients)
@@ -114,7 +117,7 @@ def make_train_step(cfg: ArchConfig, *, U: int, mode: str = "temporal",
         coeffs = layer_coefficients(mask.to(_F32), p.to(_F32))  # (U, L)
         if mode == "spatial":
             grads = torch.func.vmap(
-                torch.func.grad(client_loss),
+                autodiff.grad(client_loss),
                 in_dims=(None, 0, 0, None if frontend is None else 0))(
                     params, tokens, labels, frontend)
             return _sgd(params, aggregate_with_coeffs(grads, ids, coeffs),
@@ -150,14 +153,22 @@ def make_client_grad(cfg: ArchConfig, *, remat: bool = True,
     return _frontend_arg(cfg, client_grad)
 
 
+def _inference(x: torch.Tensor):
+    """``torch.inference_mode`` for a step's call, or ``torch.no_grad`` on
+    the ``meta`` device (the dry run's): a DTensor cannot be viewed in
+    inference mode, and nothing on meta is computed to save."""
+    return torch.no_grad() if x.device.type == "meta" else \
+        torch.inference_mode()
+
+
 def make_prefill_step(cfg: ArchConfig):
     """prefill_step(params, tokens[, frontend]) -> last-position logits
     (B, V)."""
     tr.check_supported(cfg)
 
-    @torch.inference_mode()
     def prefill_step(params, tokens, frontend):
-        return tr.prefill(params, cfg, tokens, frontend=frontend)
+        with _inference(tokens):
+            return tr.prefill(params, cfg, tokens, frontend=frontend)
 
     return _frontend_arg(cfg, prefill_step)
 
@@ -170,9 +181,9 @@ def make_serve_step(cfg: ArchConfig):
     """
     tr.check_supported(cfg)
 
-    @torch.inference_mode()
     def serve_step(params, cache, token, pos):
-        logits, cache = tr.decode_step(params, cfg, cache, token, pos)
-        return logits.argmax(-1).to(torch.int32), cache
+        with _inference(token):
+            logits, cache = tr.decode_step(params, cfg, cache, token, pos)
+            return logits.argmax(-1).to(torch.int32), cache
 
     return serve_step

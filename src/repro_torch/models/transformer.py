@@ -35,15 +35,11 @@ the flash kernel does not take.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch._C._functorch import (TransformType, get_unwrapped,
-                                 is_functorch_wrapped_tensor)
-from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -58,7 +54,8 @@ PyTree = Any
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
            "decode_step", "build_cross_cache", "layer_ids", "count_params",
-           "Cache", "check_supported", "token_nll", "with_moe_aux"]
+           "Cache", "check_supported", "token_nll", "with_moe_aux",
+           "param_specs", "cache_specs"]
 
 _F32 = torch.float32
 _FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
@@ -430,12 +427,12 @@ class _Remat(torch.autograd.Function):
     runs under ``torch.func.vmap(torch.func.grad(...))`` (the nested flash
     and SSD Functions keep their own ``vmap`` rules, in the forward and in
     the recompute), and the same ops in the same order give the same
-    values bit for bit as without it. A second derivative through it is
-    exact under autograd (``create_graph=True``), under nested
-    ``torch.func`` grads and under autograd over a ``torch.func.grad``; one
-    taken by ``torch.autograd.grad(create_graph=True)`` inside a single
-    ``torch.func.grad`` misses the block's terms, since that backward
-    cannot be told from ``torch.func.grad``'s own."""
+    values bit for bit as without it. The backward records the recompute
+    whenever it runs with grad mode on, which is when a second derivative
+    was asked for (``create_graph=True``, under autograd or any
+    ``torch.func`` grad), so every second derivative through it is exact.
+    The port's own first-order gradients (``repro_torch.autodiff.grad``)
+    run their backward with grad mode off, so they record nothing."""
 
     generate_vmap_rule = True
 
@@ -450,40 +447,9 @@ class _Remat(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cotangents):
-        # ``torch.func.grad`` runs the backward with ``create_graph=True``
-        # (grad mode on here) whether or not a second derivative follows,
-        # and recording the recompute would keep every block's activations
-        # alive to the end: so under one ``torch.func`` grad level the
-        # recompute runs under no grad (first order), while its own vjp
-        # keeps the caller's mode, so ATen takes the same paths (matmul's
-        # folding depends on it) and the grads are the same bit for bit.
-        # ``create_graph=True`` from autograd itself, grad of grad, or
-        # autograd tracking the inputs beneath a ``torch.func.grad`` asks
-        # for a second derivative: then the recompute is recorded
-        create_graph = torch.is_grad_enabled()
-        record = create_graph and (_grad_levels() != 1
-                                   or _tracked_beneath(ctx.saved_tensors))
-        with contextlib.nullcontext() if record else torch.no_grad():
-            _, vjp = torch.func.vjp(ctx.fn, *ctx.saved_tensors)
-            return (None, *vjp(cotangents, create_graph=create_graph))
-
-
-def _grad_levels() -> int:
-    """How many ``torch.func`` grad transforms (``grad``, ``vjp``,
-    ``jacrev``) are active around the caller."""
-    return sum(i.key() == TransformType.Grad
-               for i in retrieve_all_functorch_interpreters())
-
-
-def _tracked_beneath(tensors) -> bool:
-    """Whether autograd itself tracks one of ``tensors`` beneath the
-    ``torch.func`` transforms' wrappers."""
-    for t in tensors:
-        while is_functorch_wrapped_tensor(t):
-            t = get_unwrapped(t)
-        if t.requires_grad:
-            return True
-    return False
+        # the vjp asks for a graph exactly when grad mode is on
+        _, vjp = torch.func.vjp(ctx.fn, *ctx.saved_tensors)
+        return (None, *vjp(cotangents))
 
 
 def _run_block(p, cfg: ArchConfig, h, positions, cdt, *, enc_out=None,
@@ -538,8 +504,7 @@ def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``remat=True`` recomputes each block in the backward instead of keeping
     its activations (:class:`_Remat`, the reference's ``jax.checkpoint`` of
     the block; here the encoder's blocks too), under autograd and
-    ``torch.func`` alike, and second derivatives through it under either
-    alone (:class:`_Remat` has the one mix it does not take)."""
+    ``torch.func`` alike, and second derivatives through it."""
     check_supported(cfg)
     remat = remat and torch.is_grad_enabled()
     cdt = _dtype(cfg.dtype)
@@ -757,7 +722,7 @@ def decode_step(params: PyTree, cfg: ArchConfig, cache: Cache,
 
 
 # ---------------------------------------------------------------------------
-# ADEL layer ids
+# ADEL layer ids + sharding specs
 # ---------------------------------------------------------------------------
 
 def layer_ids(params: PyTree, cfg: ArchConfig) -> PyTree:
@@ -781,3 +746,63 @@ def layer_ids(params: PyTree, cfg: ArchConfig) -> PyTree:
         else:  # final_norm, enc_norm, lm_head
             ids[k] = last
     return ids
+
+
+def param_specs(params: PyTree, cfg: ArchConfig, *, fsdp="data",
+                tp: str = "model") -> PyTree:
+    """Partition-spec tree (:class:`repro_torch.launch.mesh.PartitionSpec`):
+    2D (fsdp x tensor) sharding, the reference's rules by leaf name and
+    rank.
+
+    Big matrices shard their input dim over ``fsdp`` (the data axis, ZeRO-3
+    style) and their output/feature dim over ``tp``. Vectors and norms
+    replicate. The stacked L axis is NEVER sharded (ADEL masks index it).
+    """
+    from repro_torch.launch.mesh import PartitionSpec as P
+
+    def spec(name: str, leaf) -> P:
+        nd = leaf.dim()
+        if name == "embed":
+            return P(tp, fsdp)
+        if name == "lm_head":
+            return P(fsdp, tp)
+        if name == "router":
+            return P(None, fsdp, None)
+        if name in ("wg", "wu") and nd == 4:          # experts (L, E, D, F)
+            return P(None, fsdp, None, tp)
+        if name == "wd" and nd == 4:                  # (L, E, F, D)
+            return P(None, fsdp, tp, None)
+        if name in ("wq", "wk", "wv", "wg", "wu", "w_dkv", "w_uk", "w_uv",
+                    "w_kr", "in_proj") and nd == 3:   # (L, D, F)
+            return P(None, fsdp, tp)
+        if name in ("wo", "wd", "out_proj") and nd == 3:  # (L, F, D)
+            return P(None, tp, fsdp)
+        if name in ("bq", "bk", "bv") and nd == 2:    # (L, F)
+            return P(None, tp)
+        return P(*([None] * nd))                      # norms, scalars, conv
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return spec(name, tree)
+
+    return walk(params)
+
+
+def cache_specs(cache: Cache, cfg: ArchConfig, *, batch="data", tp="model"):
+    """Cache sharding: batch over the data axes, head_dim over ``tp`` for KV
+    caches (decode attention reduces over tp); the MLA latent dim over
+    ``tp``; the SSM state's heads over ``tp``."""
+    from repro_torch.launch.mesh import PartitionSpec as P
+
+    def kv_spec(x):
+        return P(None, batch, None, None, tp)         # (L,B,S,KV,hd)
+
+    kv = None if cache.kv is None else tuple(kv_spec(x) for x in cache.kv)
+    mla = None if cache.mla is None else (
+        P(None, batch, None, tp), P(None, batch, None, None))
+    ssm = None if cache.ssm is None else (
+        P(None, batch, tp, None, None), P(None, batch, None, tp))
+    cross = None if cache.cross is None else tuple(
+        kv_spec(x) for x in cache.cross)
+    return Cache(kv=kv, mla=mla, ssm=ssm, cross=cross)

@@ -44,9 +44,9 @@ __all__ = ["now", "PHASES", "Sink", "MemorySink", "JsonlSink", "Span",
            "tree_bytes"]
 
 # canonical phase order of one federated round (timeline rendering order);
-# warm_up is the prefetch loop's; checkpoint belongs to the reference's
-# LM training loop, which the port has not taken over yet (ROADMAP.md item
-# 1.14), and keeps its place
+# warm_up is the prefetch loop's; checkpoint is the reference's name for
+# the LM training loop's saves (``launch/train.py``), which neither package
+# wraps in a span: it keeps its place in the order
 PHASES = ("warm_up", "cohort", "replan", "plan", "stack", "local_train",
           "aggregate", "eval", "checkpoint")
 

@@ -1,11 +1,12 @@
 """The PyTorch port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch`` or ``chip_smoke.py``, and entry points run on the card
-unless the caller asks for the CPU."""
+``src/repro_torch``, ``chip_smoke.py`` or ``examples/torch_*.py``, and
+entry points run on the card unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -45,7 +46,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.fleet.engine, repro_torch.fleet.scenarios, "
             "repro_torch.fleet.population, repro_torch.fl.tasks, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
-            "repro_torch.optim, repro_torch.checkpoint; "
+            "repro_torch.optim, repro_torch.checkpoint, "
+            "repro_torch.autodiff, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.launch.costprobe; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'")
@@ -119,7 +122,8 @@ def test_fleet_entry_points_default_to_the_card(tmp_path):
 
 
 def test_kernel_wrappers_take_plain_path_only_on_cpu():
-    from repro_torch.kernels.adel_agg import adel_agg, adel_agg_q8
+    from repro_torch.kernels.adel_agg import (adel_agg, adel_agg_grouped,
+                                              adel_agg_q8)
     before = (adel_agg.launches, adel_agg_q8.launches)
     g = torch.ones(2, 1, 4)
     c = torch.ones(2, 1)
@@ -128,11 +132,19 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     assert torch.equal(adel_agg_q8(q, c, c), torch.full((1, 4), 2.0))
     # the plain path is not a launch
     assert (adel_agg.launches, adel_agg_q8.launches) == before
-    # neither CPU nor CUDA: no silent fallback
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        adel_agg(g.to("meta"), c.to("meta"))
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        adel_agg_q8(q.to("meta"), c.to("meta"), c.to("meta"))
+    # meta (the dry run's) takes the plain version's shapes, no launch
+    assert adel_agg(g.to("meta"), c.to("meta")).shape == (1, 4)
+    assert adel_agg_q8(q.to("meta"), c.to("meta"), c.to("meta")).shape == (1, 4)
+    assert adel_agg_grouped([g.to("meta")], [0], c.to("meta"))[0].shape == (1, 4)
+    assert (adel_agg.launches, adel_agg_q8.launches) == before
+    # neither CPU, meta nor CUDA: no silent fallback
+    other = SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        adel_agg(other, c)
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        adel_agg_q8(other, c, c)
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        adel_agg_grouped([other], [0], c)
 
 
 def test_lm_entry_points_default_to_the_card():
@@ -189,8 +201,30 @@ def test_lm_kernel_wrappers_take_plain_path_only_on_cpu():
                               torch.ones(2), b, b, chunk=8).shape == (1, 16, 2, 4)
     # the plain path is not a launch
     assert (flash_attention.launches, ssd_scan.launches) == before
-    # neither CPU nor CUDA: no silent fallback
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        ssd_scan(x.to("meta"), la.to("meta"), b.to("meta"), b.to("meta"))
+    # meta (the dry run's) takes the plain version's shapes, no launch
+    m = q.to("meta")
+    assert flash_attention(m, m, m).shape == q.shape
+    assert ssd_scan(x.to("meta"), la.to("meta"), b.to("meta"), b.to("meta"),
+                    chunk=8).shape == x.shape
+    assert (flash_attention.launches, ssd_scan.launches) == before
+    # neither CPU, meta nor CUDA: no silent fallback
+    other = SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        flash_attention(other, q, q)
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        ssd_scan(other, la, b, b)
+
+
+def test_dryrun_import_leaves_jax_unloaded():
+    """``launch/dryrun.py`` opens its fake world only in ``main`` and its
+    functions; importing it in a process of its own loads no JAX, nothing of
+    ``repro`` and no process group."""
+    code = ("import sys, repro_torch.launch.dryrun; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(), 'a process group is open'; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro imported'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)

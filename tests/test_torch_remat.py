@@ -217,13 +217,43 @@ def test_second_derivative_through_remat_equals_no_remat(second_order):
     ``remat``: the recompute is recorded when one is asked for, so it
     equals ``remat=False``'s up to f32 rounding (the recorded recompute's
     double backward sums in another order), rtol 1e-4 and atol 1e-5 x
-    max(1, max|d2|); a block's terms missing would be O(1). (Under a
-    single ``torch.func.grad`` the recompute runs under no grad; those
-    grads are first order.)"""
+    max(1, max|d2|); a block's terms missing would be O(1)."""
     cfg = get_config("qwen1.5-4b").reduced()
     params = _params(cfg)
     tok, lab, _ = _inputs(cfg, S=6)
     want, got = (second_order(cfg, params, tok, lab, remat=r)
+                 for r in (False, True))
+    assert len(want) == len(got)
+    scale = max(1.0, max(float(a.abs().max()) for a in want))
+    for a, b in zip(want, got):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5 * scale)
+
+
+def _autograd_inside_func_grad(cfg, params, tok, lab, remat):
+    """``torch.func.grad`` of the gradient's squared norm, the gradient
+    taken inside it by ``torch.autograd.grad(create_graph=True)``."""
+    def norm(p):
+        leaves = tree_leaves(p)
+        loss = ptr.loss_fn(tree_unflatten(p, leaves), cfg, tok, lab,
+                           remat=remat)
+        grads = torch.autograd.grad(loss, leaves, create_graph=True)
+        return sum((g * g).sum() for g in grads)
+    return tree_leaves(torch.func.grad(norm)(params))
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen1.5-4b"])
+def test_autograd_second_derivative_inside_func_grad_equals_no_remat(arch):
+    """``torch.autograd.grad(create_graph=True)`` inside one
+    ``torch.func.grad`` (ROADMAP 3.6): its backward runs with grad mode on,
+    so the recompute is recorded and the second derivative through remat
+    equals ``remat=False``'s at rtol 1e-4 (atol 1e-5 x max(1, max|d2|)),
+    through the flash and SSD Functions (hymba) and a dense GQA block
+    (qwen). Before the repair this backward could not be told from
+    ``torch.func.grad``'s own and missed the blocks' terms."""
+    cfg = get_config(arch).reduced()
+    params = _params(cfg)
+    tok, lab, _ = _inputs(cfg, S=6)
+    want, got = (_autograd_inside_func_grad(cfg, params, tok, lab, remat=r)
                  for r in (False, True))
     assert len(want) == len(got)
     scale = max(1.0, max(float(a.abs().max()) for a in want))

@@ -11,8 +11,11 @@ the reference on the same inputs:
   ``make_image_dataset`` and ``fl.partition.iid_partition``: equal arrays
   on several seeds and sizes;
 * the straggler model's B3 properties (the port of
-  ``tests/test_system.py:84-117``) on the port's ``core.straggler``.
+  ``tests/test_system.py:84-117``) on the port's ``core.straggler``;
+* ``tests/test_backends.py:167 test_topk8_compressed_converges`` under the
+  reference's draws, through the port's draw seam (ROADMAP 3.5).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,15 +23,27 @@ import torch
 from _hypothesis_compat import given, settings, st
 
 from repro.core import compression as rcmp
+from repro.core.baselines import make_policy as ref_make_policy
+from repro.core.scheduler import solve as ref_solve
+from repro.core.types import AnalysisConfig as RefConfig
+from repro.fl.server import run_federated as ref_run_federated
+from repro.models.paper_models import make_mlp as ref_make_mlp
 from repro.data import synthetic as rsyn
 from repro.fl import partition as rpart
+from repro_torch.convert import params_from_jax
+from repro_torch.core.baselines import make_policy
 from repro_torch.core.compression import (aggregate_compressed,
                                           compress_deltas, make_compression)
+from repro_torch.core.scheduler import Schedule
+from repro_torch.core.types import AnalysisConfig
+from repro_torch.fl.server import run_federated
+from repro_torch.models.paper_models import make_mlp
 from repro_torch.core.straggler import (batch_sizes, contribution_mask,
                                         poisson_rates)
 from repro_torch.data import synthetic as psyn
 from repro_torch.fl import partition as ppart
 from test_torch_agg_wire import _ids, _mask_p, _port, _t, _tree
+from test_torch_fl import ReferenceDraws
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -129,3 +144,56 @@ def test_poisson_rate_lower_bound(T_d, m):
     feasible = m * P >= 1.0
     lam = poisson_rates(T_d, m, P, np.zeros(3, np.float32)).numpy()
     assert np.all(lam[feasible] >= T_d / m - 1e-4)
+
+
+# tests/test_backends.py:139 and :167
+COMPRESSED_ACC_TOL = 0.02
+
+
+def test_topk8_compressed_converges_under_reference_draws():
+    """``tests/test_backends.py:167``'s setting (MLP, 600 samples over U=8
+    Dirichlet(0.5) clients, 200 test samples, R=5, the reference's own
+    150-step Adam schedule): dense ADEL against topk8 at a kept fraction
+    of 0.5, the final accuracies within the reference's 0.02. Each port
+    run replays the reference run's draws (its Poisson depths, minibatch
+    indices and init) through the draw seam, so the port's gap is held to
+    the same bar the reference's is, and each port trajectory to the
+    reference's within one test sample in 100 (2 of 200)."""
+    R, U = 5, 8
+    x_tr, y_tr, x_te, y_te = psyn.make_image_dataset(
+        "mnist", n_train=600, n_test=200, seed=0, noise_std=1.0)
+    cx, cy, counts = ppart.stack_clients(x_tr, y_tr, ppart.dirichlet_partition(
+        y_tr, U, alpha=0.5, seed=0))
+    ref_model = ref_make_mlp()
+    kw = dict(U=U, L=ref_model.L, R=R, T_max=R * ref_model.L * 0.5, eta0=2.0,
+              seed=0)
+    ref_cfg, cfg = RefConfig.default(**kw), AnalysisConfig.default(**kw)
+    ref_sched = ref_solve(ref_cfg, "adam", steps=150)
+    sched = Schedule(T=np.asarray(ref_sched.T), m=float(ref_sched.m),
+                     objective=float(ref_sched.objective),
+                     p1=np.asarray(ref_sched.p1))
+    ref_data = tuple(jnp.asarray(a) for a in (cx, cy, counts, x_te, y_te))
+    ref, port = {}, {}
+    for name, comp in (("dense", None), ("topk8", ("topk8", 0.5))):
+        _, ref[name] = ref_run_federated(
+            ref_model, ref_make_policy("adel", ref_cfg, schedule=ref_sched),
+            ref_cfg, *ref_data, key=jax.random.PRNGKey(0), backend="dense",
+            compression=comp)
+        draws = ReferenceDraws(0, R, ref_sched.T, ref_sched.m, ref_cfg)
+        init = params_from_jax(jax.tree.map(
+            np.asarray, ref_model.init(draws.k_init)), "cpu")
+        _, port[name] = run_federated(
+            make_mlp(), make_policy("adel", cfg, schedule=sched), cfg, cx, cy,
+            counts, x_te, y_te, draws=draws, init_params=init,
+            compression=comp, device="cpu")
+    for name in ref:
+        np.testing.assert_allclose(port[name].times, ref[name].times,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(port[name].accuracy, ref[name].accuracy,
+                                   rtol=0, atol=2.0 / len(y_te) + 1e-9)
+    np.testing.assert_allclose(port["topk8"].times, port["dense"].times,
+                               rtol=1e-6)
+    ref_gap = abs(ref["topk8"].accuracy[-1] - ref["dense"].accuracy[-1])
+    gap = abs(port["topk8"].accuracy[-1] - port["dense"].accuracy[-1])
+    assert ref_gap <= COMPRESSED_ACC_TOL, ref_gap
+    assert gap <= COMPRESSED_ACC_TOL, (gap, ref_gap)

@@ -4,8 +4,8 @@ the Auxiliary Lemma), ``tests/test_lemma1.py`` (Lemma 1), ``tests/
 test_scheduler.py`` (the Problem-2 solvers), ``tests/test_unbiasedness.py``
 (Lemma 2 and the late-set fold), ``tests/test_variance.py`` (Lemma 3) and
 ``tests/test_extensions.py`` without ``calibrate`` (``q_inv``, the solver's
-feasibility, ``solve_rounds``; ``fl/calibrate.py`` waits for ROADMAP.md
-item 1.14).
+feasibility, ``solve_rounds``; ``fl/calibrate.py`` has its own file,
+``tests/test_torch_calibrate.py``).
 
 Tolerances: the ladder and the exact probabilities rtol 1e-5 / atol 1e-6
 (f32 log-space sums in another order, ``tests/test_torch_core.py``); a

@@ -20,7 +20,7 @@
    version, timed the same way beside the 38 ``torch.einsum`` calls (f32)
    and the 38 per-leaf ``adel_agg_q8`` launches of earlier rounds (int8).
 4. Holds the LM kernels against their plain versions the same way:
-   ``flash_attention`` (bf16 on the tensor cores, f32 on the CUDA cores) at
+   ``flash_attention`` (both on the tensor cores: bf16, and f32 as 3xTF32) at
    hymba-1.5b's prefill shape and its training block (8 x 256 tokens), at
    yi-6b's, with a ragged S, non-causal with
    Sq != Sk and with rows that see no key, each in bf16 and f32, and
@@ -30,8 +30,11 @@
    and mamba2-370m's shapes, and at hymba's read through strides from the
    model's (B, S, H, P) layout, with each phase's device time.
    Bound: the larger of bytes over HBM rate and flops over the dtype's
-   peak. Prints ptxas's registers and spills of every kernel and the
-   flash library's count of ``HGMMA`` and ``UTMALDG`` instructions.
+   peak (f32 flash: three TF32 products a product, 495 / 3 TFLOP/s, with
+   the CUDA cores' 67 TFLOP/s bound beside it). Prints ptxas's registers
+   and spills of every kernel and the flash library's count of ``HGMMA``
+   (tf32 and bf16 apart; fails without tf32 ones) and ``UTMALDG``
+   instructions.
 5. Drives the FL path at full width: ``run_federated`` on VGG-11
    (``width_scale=1.0``), synthetic CIFAR, U=10 Dirichlet(0.5) clients, the
    ADEL policy from ``solve(cfg, "adam")``, once uncompressed and once with
@@ -187,6 +190,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+# the f32 flash kernel takes each product as three TF32 products (3xTF32)
+F32_FLASH_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 # (rtol, atol) of a kernel against its plain version: f32 sums in another
 # order; bf16 outputs may round one bf16 ulp apart (< 0.8%)
 TOL = {"f32": (1e-5, 1e-5), "bf16": (1e-2, 1e-2), "q8": (1e-5, 1e-5)}
@@ -1754,7 +1760,8 @@ def lm_kernel_cases(torch) -> list:
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
 
-    def record(kernel, tag, dtype, shape, out, ref, fns, cost, peak, reps):
+    def record(kernel, tag, dtype, shape, out, ref, fns, cost, peak, reps,
+               cuda_core_peak=None):
         rtol, atol = LM_TOL[dtype]
         err = (out.float() - ref.float()).abs()
         ok = bool((err <= atol + rtol * ref.float().abs()).all())
@@ -1770,6 +1777,12 @@ def lm_kernel_cases(torch) -> list:
                "bound_ms": bound_ms(*cost, peak),
                "bound_by": bound_by(*cost, peak), "bytes": cost[0],
                "flops": cost[1]}
+        # the f32 flash kernel's bound before it ran on the tensor cores,
+        # kept comparable with earlier runs
+        core = ""
+        if cuda_core_peak is not None:
+            row["cuda_core_bound_ms"] = bound_ms(*cost, cuda_core_peak)
+            core = f" cuda_core_bound_ms={row['cuda_core_bound_ms']:.5f}"
         lib_ms = row["library_ms"]
         ratio = None if lib_ms is None else row["kernel_ms"] / lib_ms
         print(f"[kernel] {kernel:15s} {tag:8s} {dtype:4s} {shape} "
@@ -1778,7 +1791,7 @@ def lm_kernel_cases(torch) -> list:
               f"{row['call_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
               f"library_ms={'null' if lib_ms is None else f'{lib_ms:.5f}'} "
               f"kernel/library={'null' if ratio is None else f'{ratio:.3f}'} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}){core} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{kernel} {tag} {dtype} {shape} disagrees: "
                   f"{row['max_abs_err']}")
@@ -1847,7 +1860,8 @@ def lm_kernel_cases(torch) -> list:
             lib = (lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True))
-            peak = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
+            peak = (BF16_FLOPS_PER_S if dtype == "bf16"
+                    else F32_FLASH_FLOPS_PER_S)
             record("flash_attention", tag, dtype,
                    f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} "
                    f"causal={int(causal)} window={window}"
@@ -1855,7 +1869,8 @@ def lm_kernel_cases(torch) -> list:
                    (run, lambda: flash_attention_plain(q, k, v, causal=causal,
                                                        window=window), lib),
                    flash_cost(B, H, KV, Sq, Sk, hd, causal, window,
-                              q.element_size()), peak, reps=5)
+                              q.element_size()), peak, reps=5,
+                   cuda_core_peak=None if dtype == "bf16" else F32_FLOPS_PER_S)
             rows[-1]["problem"] = (B, H, KV, Sq, Sk, hd, causal, window)
             del q, k, v, out, ref
 
@@ -1913,10 +1928,11 @@ def ssd_phases(torch, fn, calls: int = 5) -> dict:
 
 
 def build_report() -> None:
-    """Informational, not a check: ptxas's registers and spills of every
-    kernel of the three libraries (the name with its mangled template
-    arguments), and the count of tensor-core (``HGMMA``)
-    and TMA-load (``UTMALDG``) instructions in the flash library's SASS."""
+    """ptxas's registers and spills of every kernel of the three libraries
+    (the name with its mangled template arguments), and the count of
+    tensor-core (``HGMMA``: the bf16 and the tf32 ones apart) and TMA-load
+    (``UTMALDG``) instructions in the flash library's SASS. Fails unless
+    the SASS holds tf32 ``HGMMA`` s (the f32 kernel on the tensor cores)."""
     from repro_torch.kernels import build
     for lib in build.SOURCES:
         report = build.ptxas_report(lib)
@@ -1931,14 +1947,17 @@ def build_report() -> None:
             elif kernel and ("spill" in line or "registers" in line):
                 print(f"[build] {lib}: {kernel}: {line.strip()}", flush=True)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(cuobjdump).exists():
-        print("[build] cuobjdump not found", flush=True)
-        return
+    check(Path(cuobjdump).exists(), "cuobjdump not found: no SASS to count")
     sass = subprocess.run([cuobjdump, "-sass",
                            str(build.library_path("flash_attention"))],
                           capture_output=True, text=True, timeout=120).stdout
-    print(f"[build] SASS of the flash library: HGMMA="
-          f"{sass.count('HGMMA')} UTMALDG={sass.count('UTMALDG')}", flush=True)
+    hgmma = [line for line in sass.splitlines() if "HGMMA" in line]
+    tf32 = sum(".TF32" in line for line in hgmma)
+    bf16 = sum(".BF16" in line for line in hgmma)
+    print(f"[build] SASS of the flash library: HGMMA={len(hgmma)} (tf32 "
+          f"{tf32}, bf16 {bf16}) UTMALDG={sass.count('UTMALDG')}", flush=True)
+    check(tf32 > 0 and bf16 > 0,
+          f"flash library SASS: {tf32} tf32 and {bf16} bf16 HGMMAs")
 
 
 def hymba_prefill(torch) -> dict:
@@ -2002,7 +2021,7 @@ def hymba_prefill(torch) -> dict:
         prof_wall = 1e3 * (time.perf_counter() - t0)
     kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    # "flash_fwd_kernel" matches both flash kernels (bf16: ..._tc);
+    # "flash_fwd_kernel" matches both flash kernels (_tc, _tf32);
     # "ssd_scan_" the four kernels of the three-phase SSD scan
     mine = {name: sum(e.self_device_time_total for e in kernels
                       if key in e.key) / 1e3
@@ -2170,7 +2189,7 @@ def lm_grad_cases(torch) -> list:
                           (*flash_cost(B, H, KV, S, S, hd, True, win,
                                        2 if dtype == "bf16" else 4),
                            BF16_FLOPS_PER_S if dtype == "bf16"
-                           else F32_FLOPS_PER_S))
+                           else F32_FLASH_FLOPS_PER_S))
     ws = randn(B, S, Hs, P)
 
     def scan_loss(xdt, la, b, c):
@@ -3882,6 +3901,13 @@ def main() -> int:
             yi = next(r for r in mine if (r["case"], r["dtype"]) == ("yi", "bf16"))
             kernels[-1].update(yi6b_ms=yi["kernel_ms"],
                                yi6b_library_ms=yi["library_ms"])
+            # the f32 kernel (3xTF32) where the main path runs it most
+            kernels[-1]["f32"] = {
+                r["case"]: {k: r[k] for k in (
+                    "kernel_ms", "library_ms", "bound_ms",
+                    "cuda_core_bound_ms", "max_abs_err")}
+                for r in mine if r["dtype"] == "f32"
+                and r["case"] in ("seamless_decoder", "train_block")}
             arc = next(r for r in mine
                        if (r["case"], r["dtype"]) == ("arctic", "bf16"))
             kernels[-1]["arctic_gqa7"] = {

@@ -9,12 +9,18 @@ kernel it takes any Sq and Sk (the ragged tile is masked in the kernel) and
 its KV loop runs only over the tiles a q tile can see. A row with no visible
 key gives 0, as the Pallas kernel's ``acc / max(l, 1e-30)`` does.
 
-The dtype picks the kernel: bf16 runs on the tensor cores (``wgmma`` fed by
-TMA, P split into bf16 hi + lo parts), f32 on the CUDA cores. Both read
-q, k and v and write the output through their strides (:func:`kernel_strides`),
-so the model's (B, S, H, hd) layout needs no copy; the output takes q's
-layout. Bound on an H100 SXM: operations (4 * hd flops per visible
-(query, key) pair); the source's header has the design.
+The dtype picks the kernel, both on the tensor cores (``wgmma`` fed by TMA,
+128 q rows a block, :data:`Q_TILE`): bf16 with P split into bf16 hi + lo
+parts, 128-key tiles; f32 in 3xTF32, every operand split into tf32 hi + lo
+parts and each product taken as lo*hi + hi*lo + hi*hi, with V transposed in
+shared memory on the way (tf32 ``wgmma`` reads its B operand K-major only),
+64-key tiles at hd 64 and 32 at hd 128 (:data:`KEY_TILE`: shared memory,
+160 and 224 KB a block, is the binding limit). Both read q, k and v and
+write the output through their strides (:func:`kernel_strides`), so the
+model's (B, S, H, hd) layout needs no copy; the output takes q's layout.
+Bound on an H100 SXM: operations (4 * hd flops per visible (query, key)
+pair), at 989 TFLOP/s in bf16 and 495 / 3 in f32; the source's header has
+the design and the shared-memory budget.
 
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it computes :func:`flash_attention_plain`, which ``chip_smoke.py`` also
@@ -46,14 +52,22 @@ from repro_torch.models.attention import visible_mask
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_backward_plain", "FlashAttention",
-           "fold_vmapped", "kernel_strides", "visible_mask", "visible_pairs"]
+           "fold_vmapped", "kernel_strides", "visible_mask", "visible_pairs",
+           "Q_TILE", "KEY_TILE"]
 
 _LIB = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_GRID_YZ = 65535
-_BQ_TC = 128                     # q rows per block of the bf16 kernel (grid z)
 _ALIGN = 16                      # bytes: TMA's rule for the base and strides
+
+# q rows a block of each dtype's kernel takes (the grid's z extent is Sq
+# over it), and the keys of its K/V tiles by (dtype, hd): the library's
+# ``flash_attention_q_tile`` / ``flash_attention_key_tile``, checked when
+# it is loaded
+Q_TILE = {torch.float32: 128, torch.bfloat16: 128}
+KEY_TILE = {(torch.float32, 64): 64, (torch.float32, 128): 32,
+            (torch.bfloat16, 64): 128, (torch.bfloat16, 128): 128}
 
 
 def visible_pairs(Sq: int, Sk: int, *, causal: bool = True, window: int = 0) -> int:
@@ -81,9 +95,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, H, Sq, hd).to(q.dtype)
 
 
+def library_tiles(lib) -> tuple[dict, dict]:
+    """The (q tile, key tile) dicts the built library reports, keyed as
+    :data:`Q_TILE` and :data:`KEY_TILE` are."""
+    lib.flash_attention_q_tile.argtypes = [ctypes.c_int]
+    lib.flash_attention_key_tile.argtypes = [ctypes.c_int, ctypes.c_int]
+    q = {dt: lib.flash_attention_q_tile(code) for dt, code in _DTYPES.items()}
+    k = {(dt, hd): lib.flash_attention_key_tile(_DTYPES[dt], hd)
+         for dt, hd in KEY_TILE}
+    return q, k
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = load_library(_LIB).flash_attention_fwd
+    lib = load_library(_LIB)
+    if library_tiles(lib) != (Q_TILE, KEY_TILE):
+        raise RuntimeError(f"the flash library's tiles {library_tiles(lib)} "
+                           f"are not Q_TILE, KEY_TILE")
+    fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_int64),
                       ctypes.c_void_p])
@@ -95,7 +124,7 @@ def kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:
     """The element strides (b, heads, s) through which the kernels read a
     (B, heads, S, hd) tensor, or ValueError if they cannot: hd must have
     unit stride, and the base address and every other stride must be
-    16-byte aligned (TMA's rule; the f32 kernel keeps the same one). A dim
+    16-byte aligned (TMA's rule, for both kernels). A dim
     of size 1 is never stepped over, so its stride is replaced by hd; a
     broadcast (stride 0) dim is refused. No copy is made."""
     if t.dim() != 4:
@@ -134,7 +163,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
     if (min(B, H, Sq, Sk) < 1 or window < 0
-            or max(B, H, -(-Sq // _BQ_TC)) > _MAX_GRID_YZ):
+            or max(B, H, -(-Sq // Q_TILE[q.dtype])) > _MAX_GRID_YZ):
         raise ValueError(f"shape {tuple(q.shape)} / window {window} out of range")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")

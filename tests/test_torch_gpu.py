@@ -696,9 +696,9 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd,
 
 
 @pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "flash_fwd_kernel_tc"),
-                                          (torch.float32, "flash_fwd_kernel<")])
+                                          (torch.float32, "flash_fwd_kernel_tf32")])
 def test_flash_dtype_picks_the_kernel(cuda, dtype, kernel):
-    """bf16 runs only the tensor-core kernel, f32 only the CUDA-core one."""
+    """bf16 runs only the bf16 kernel, f32 only the 3xTF32 one."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -718,6 +718,45 @@ def test_flash_dtype_picks_the_kernel(cuda, dtype, kernel):
         time.sleep(0.5)
     names = [e.key for e in prof.key_averages() if "flash_fwd_kernel" in e.key]
     assert len(names) == 1 and kernel in names[0], names
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48),
+                                           (False, 48)])
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (1, 1000), (63, 65), (65, 63),
+                                   (65, 65), (63, 1000), (1000, 1),
+                                   (1000, 1000)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_f32_kernel_at_its_tile_edges(cuda, hd, Sq, Sk, causal, window):
+    """The 3xTF32 kernel where its 128-row q tiles, its 64- (hd 64) and
+    32-key (hd 128) K/V tiles and its 8-key k-steps end: (B, H, S, hd) views
+    of the model's (B, S, H, hd) tensors, GQA, within FLASH_TOL of the plain
+    version; a row with no visible key exactly 0; two calls bit for bit."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     visible_mask)
+    gen = torch.Generator(device=cuda).manual_seed(Sq * 7 + Sk + hd)
+    B, H, KV = 2, 4, 2
+    q, k, v = (torch.randn((B, S, heads, hd), generator=gen,
+                           device=cuda).transpose(1, 2)
+               for S, heads in ((Sq, H), (Sk, KV), (Sk, KV)))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    assert torch.equal(out, again)
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert _close(out, ref, **FLASH_TOL[torch.float32]), (out - ref).abs().max()
+    empty = ~visible_mask(Sq, Sk, causal, window, cuda).any(-1)
+    assert (out[:, :, empty] == 0).all()
+
+
+def test_flash_tiles_are_the_librarys(cuda):
+    """The wrapper's q and key tiles (its grid check, the CPU emulation of
+    the f32 kernel) are the built library's."""
+    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.flash_attention import (KEY_TILE, Q_TILE,
+                                                     library_tiles)
+    assert library_tiles(load_library("flash_attention")) == (Q_TILE, KEY_TILE)
 
 
 @pytest.mark.parametrize("G,r,S,P,N,chunk", [

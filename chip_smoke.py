@@ -26,15 +26,17 @@
    Sq != Sk and with rows that see no key, each in bf16 and f32, and
    through ``gqa_flash`` on the model's (B, S, H, hd) tensors at hymba's
    shape, beside ``scaled_dot_product_attention`` (a yardstick the port
-   never calls); ``ssd_scan`` (the three-phase chunk scan) at hymba-1.5b's
-   and mamba2-370m's shapes, and at hymba's read through strides from the
-   model's (B, S, H, P) layout, with each phase's device time.
+   never calls); ``ssd_scan`` (one pass over the chunks, 3xTF32 on the
+   tensor cores) at hymba-1.5b's and mamba2-370m's shapes, and at hymba's
+   prefill and training block read through strides from the model's (B, S,
+   H, P) layout, two calls bit for bit, with the kernel's device time.
    Bound: the larger of bytes over HBM rate and flops over the dtype's
-   peak (f32 flash: three TF32 products a product, 495 / 3 TFLOP/s, with
-   the CUDA cores' 67 TFLOP/s bound beside it). Prints ptxas's registers
-   and spills of every kernel and the flash library's count of ``HGMMA``
-   (tf32 and bf16 apart; fails without tf32 ones) and ``UTMALDG``
-   instructions.
+   peak (f32 flash and the SSD scan: three TF32 products a product, 495 / 3
+   TFLOP/s, with the CUDA cores' 67 TFLOP/s bound beside it). Prints
+   ptxas's registers and spills of every kernel, the flash library's count
+   of ``HGMMA`` (tf32 and bf16 apart; fails without tf32 ones) and
+   ``UTMALDG`` instructions, and the SSD library's tf32 ``HGMMA`` s (fails
+   without them).
 5. Drives the FL path at full width: ``run_federated`` on VGG-11
    (``width_scale=1.0``), synthetic CIFAR, U=10 Dirichlet(0.5) clients, the
    ADEL policy from ``solve(cfg, "adam")``, once uncompressed and once with
@@ -88,9 +90,9 @@
 9. Runs the quickstart regime (MLP, R=25) on the card: accuracy > 0.3.
 10. Drives the LM path at full width: ``make_prefill_step`` on hymba-1.5b
    (all 32 blocks, bf16) over 2 x 4096 random tokens, with 32 launches of
-   each LM kernel per prefill (an ``ssd_scan`` launch is one three-phase
-   scan, four kernels) and finite (2, 32256) logits, then profiled (flash
-   and SSD device time, layout copies);
+   each LM kernel per prefill (an ``ssd_scan`` launch is one kernel) and
+   finite (2, 32256) logits, then profiled (flash and SSD device time,
+   layout copies);
    ``serve("hymba-1.5b", reduced=False)`` (batch 4, 64 + 32 tokens); and the
    prefill (kernels) against stepping the decode path (plain) over 1152
    tokens, past the 1024 window, at full width cut to 4 blocks in f32.
@@ -191,7 +193,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
-# the f32 flash kernel takes each product as three TF32 products (3xTF32)
+# the f32 flash kernel and the SSD scan take each product as three TF32
+# products (3xTF32)
 F32_FLASH_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 # (rtol, atol) of a kernel against its plain version: f32 sums in another
 # order; bf16 outputs may round one bf16 ulp apart (< 0.8%)
@@ -1876,11 +1879,13 @@ def lm_kernel_cases(torch) -> list:
 
     # "model": hymba's xdt and la as (B, H, S, P) and (B, H, S) views of the
     # model's (B, S, H, P) and (B, S, H) tensors, read through strides, y
-    # back in that layout, as ops.ssd_chunked_kernel hands them over
+    # back in that layout, as ops.ssd_chunked_kernel hands them over;
+    # "train_block": the same at hymba's training block (8 rows of 256)
     for tag, G, r, S, P, N, Q in (("hymba", 2, 64, 4096, 50, 16, 64),
                                   ("model", 2, 64, 4096, 50, 16, 64),
-                                  ("mamba2", 2, 32, 4096, 64, 128, 64)):
-        if tag == "model":
+                                  ("mamba2", 2, 32, 4096, 64, 128, 64),
+                                  ("train_block", 8, 64, 256, 50, 16, 64)):
+        if tag in ("model", "train_block"):
             xdt = torch.randn((G, S, r, P), generator=gen,
                               device="cuda").transpose(1, 2)
             la = -0.5 * torch.rand((G, S, r), generator=gen,
@@ -1891,48 +1896,52 @@ def lm_kernel_cases(torch) -> list:
         b = 0.3 * torch.randn((G, S, N), generator=gen, device="cuda")
         c = 0.3 * torch.randn((G, S, N), generator=gen, device="cuda")
         y = ssd_scan(xdt, la, b, c, chunk=Q)
+        again = ssd_scan(xdt, la, b, c, chunk=Q)
         check(y.shape == xdt.shape and y.stride() == xdt.stride(),
               "ssd output not in xdt's shape and layout")
+        check(torch.equal(y, again), f"ssd_scan {tag}: two calls differ")
         record("ssd_scan", tag, "ssd",
                f"B={G} heads={r} S={S} P={P} N={N} Q={Q}"
-               + (" (B,H,S,P) views" if tag == "model" else ""), y,
+               + (" (B,H,S,P) views" if tag != "hymba" and tag != "mamba2"
+                  else ""), y,
                ssd_scan_plain(xdt, la, b, c, chunk=Q),
                (lambda: ssd_scan(xdt, la, b, c, chunk=Q),
                 lambda: ssd_scan_plain(xdt, la, b, c, chunk=Q), None),
-               ssd_cost(G, r, S, P, N, Q), F32_FLOPS_PER_S, reps=5)
-        rows[-1]["phases_ms"] = ssd_phases(torch, lambda: ssd_scan(
+               ssd_cost(G, r, S, P, N, Q), F32_FLASH_FLOPS_PER_S, reps=5,
+               cuda_core_peak=F32_FLOPS_PER_S)
+        rows[-1]["bit_equal"] = True
+        rows[-1]["device_ms"] = ssd_device_ms(torch, lambda: ssd_scan(
             xdt, la, b, c, chunk=Q))
-        print(f"[kernel] ssd_scan        {tag:8s} phases (device ms a call): "
-              + " ".join(f"{k}={v:.5f}" for k, v in rows[-1]["phases_ms"].items()),
-              flush=True)
+        print(f"[kernel] ssd_scan        {tag:8s} device ms a call "
+              f"(torch.profiler): {rows[-1]['device_ms']:.5f}; two calls "
+              "bit-equal", flush=True)
     torch.cuda.empty_cache()
     return rows
 
 
-def ssd_phases(torch, fn, calls: int = 5) -> dict:
-    """Device time a call of each of the SSD scan's four kernels, from
-    ``torch.profiler`` over ``calls`` calls."""
+def ssd_device_ms(torch, fn, calls: int = 5) -> float:
+    """Device time a call of the SSD scan's one kernel (``ssd_scan_tc``, or
+    ``ssd_scan_ws`` with a producer warpgroup), from ``torch.profiler``
+    over ``calls`` calls; fails unless one such kernel, and no other, runs
+    one launch a call."""
     fn()
     with device_profile(torch) as prof:
         for _ in range(calls):
             fn()
-    out: dict = {}
-    for e in device_kernels(prof):
-        found = re.search(r"ssd_scan_(cb|states|pass|outputs)", e.key)
-        if found:
-            out[found[1]] = (out.get(found[1], 0.0)
-                             + e.self_device_time_total / 1e3 / calls)
-    check(set(out) == {"cb", "states", "pass", "outputs"},
-          f"the SSD scan's four kernels not all seen: {sorted(out)}")
-    return out
+    mine = [e for e in device_kernels(prof) if "ssd_scan" in e.key]
+    check(len(mine) == 1 and re.search(r"ssd_scan_(tc|ws)<", mine[0].key)
+          and mine[0].count == calls,
+          f"the SSD scan's kernels: {[(e.key, e.count) for e in mine]}")
+    return mine[0].self_device_time_total / 1e3 / calls
 
 
 def build_report() -> None:
     """ptxas's registers and spills of every kernel of the three libraries
     (the name with its mangled template arguments), and the count of
     tensor-core (``HGMMA``: the bf16 and the tf32 ones apart) and TMA-load
-    (``UTMALDG``) instructions in the flash library's SASS. Fails unless
-    the SASS holds tf32 ``HGMMA`` s (the f32 kernel on the tensor cores)."""
+    (``UTMALDG``) instructions in the flash library's SASS and of tf32
+    ``HGMMA`` s in the SSD library's. Fails unless both libraries' SASS
+    holds tf32 ``HGMMA`` s (the f32 kernels on the tensor cores)."""
     from repro_torch.kernels import build
     for lib in build.SOURCES:
         report = build.ptxas_report(lib)
@@ -1958,6 +1967,14 @@ def build_report() -> None:
           f"{tf32}, bf16 {bf16}) UTMALDG={sass.count('UTMALDG')}", flush=True)
     check(tf32 > 0 and bf16 > 0,
           f"flash library SASS: {tf32} tf32 and {bf16} bf16 HGMMAs")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("ssd_scan"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    hgmma = [line for line in sass.splitlines() if "HGMMA" in line]
+    tf32 = sum(".TF32" in line for line in hgmma)
+    print(f"[build] SASS of the ssd library: HGMMA={len(hgmma)} (tf32 "
+          f"{tf32})", flush=True)
+    check(tf32 > 0, f"ssd library SASS: {tf32} tf32 HGMMAs")
 
 
 def hymba_prefill(torch) -> dict:
@@ -2022,7 +2039,7 @@ def hymba_prefill(torch) -> dict:
     kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     # "flash_fwd_kernel" matches both flash kernels (_tc, _tf32);
-    # "ssd_scan_" the four kernels of the three-phase SSD scan
+    # "ssd_scan_" the SSD scan's kernel (ssd_scan_tc or ssd_scan_ws)
     mine = {name: sum(e.self_device_time_total for e in kernels
                       if key in e.key) / 1e3
             for name, key in (("flash_attention", "flash_fwd_kernel"),
@@ -2042,8 +2059,8 @@ def hymba_prefill(torch) -> dict:
         print(f"[hymba profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     check(busy > 0, "the profiler saw no device time")
-    check(ssd_launches == 4 * cfg.L,
-          f"{ssd_launches} SSD kernel launches, not 4 phases x {cfg.L} blocks")
+    check(ssd_launches == cfg.L,
+          f"{ssd_launches} SSD kernel launches, not one a block x {cfg.L}")
     arg_bytes = param_bytes(params) + tokens.nbytes
     del params, tokens, logits
     torch.cuda.empty_cache()
@@ -2215,7 +2232,7 @@ def lm_grad_cases(torch) -> list:
                       scan_plain, scan_args,
                       f"B={B} S={S} heads={Hs} P={P} N={N} Q={Q} "
                       "(B,S,H,P) views",
-                      (*ssd_cost(B, Hs, S, P, N, Q), F32_FLOPS_PER_S))
+                      (*ssd_cost(B, Hs, S, P, N, Q), F32_FLASH_FLOPS_PER_S))
     torch.cuda.empty_cache()
     return rows
 
@@ -2462,9 +2479,9 @@ def lm_training(torch, grad_rows: list) -> dict:
         print(f"[lm train]   {ms:9.3f} ms x{count:<6d} {key[:90]}", flush=True)
     check(split["launches"]["flash_fwd"] == per_forward
           and split["launches"]["fold"] == U
-          and split["launches"]["ssd_scan"] == 4 * per_forward,
+          and split["launches"]["ssd_scan"] == per_forward,
           f"profiled launches {split['launches']}: not {per_forward} flash, "
-          f"{4 * per_forward} SSD phase kernels, {U} folds")
+          f"{per_forward} SSD kernels, {U} folds")
     del params
     torch.cuda.empty_cache()
     return {"launches_per_round": per_round[-1], "walls_ms": walls,
@@ -3716,7 +3733,8 @@ def examples_phase(torch) -> None:
     ``examples/torch_serve_llm.py --arch mamba2-370m --full`` (the
     reference example's default arch, whole, at full width): its batched
     prefill through ``ssd_scan`` (one launch a block), the decode's
-    tokens/s."""
+    tokens/s, and its next tokens against the same prefill through the
+    plain scan (:func:`serve_first_tokens`)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -3735,8 +3753,8 @@ def examples_phase(torch) -> None:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = load_example("torch_serve_llm").main(
-        ["--arch", EXAMPLE_SERVE_ARCH, "--full"])
+    serve_ex = load_example("torch_serve_llm")
+    out = serve_ex.main(["--arch", EXAMPLE_SERVE_ARCH, "--full"])
     serve_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     print(f"[examples] torch_serve_llm.py --arch {EXAMPLE_SERVE_ARCH} --full "
@@ -3753,7 +3771,70 @@ def examples_phase(torch) -> None:
           f"{2 * cfg.L}")
     check(np_shape(out["generated"]) == (4, 48),
           f"serve example: generated {np_shape(out['generated'])}")
+    serve_first_tokens(torch, serve_ex, out)
     torch.cuda.empty_cache()
+
+
+def serve_first_tokens(torch, serve_ex, out) -> None:
+    """The serve example's prefill (4 x 32 tokens, seed 0) again, through
+    the kernel and through ``ssd_scan_plain`` on the card (the model's
+    ``ops.SSDScan`` swapped for the plain scan). In the example's bf16
+    compute, row by row beside the decode's first token: each one's next
+    token, the gap between the two largest kernel logits and the largest
+    |kernel - plain| logit (a token can differ only where that gap is
+    under twice the difference). The same prefill in f32 compute must
+    agree within ``AGREE_TOL`` of the logits' scale, as ``[hymba
+    agree]``'s."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+
+    class PlainScan:
+        @staticmethod
+        def apply(xdt, la, b, c, chunk):
+            return ssd_scan_plain(xdt, la, b, c, chunk=chunk)
+
+    def kernel_and_plain(run):
+        kern = run().float()
+        saved, ops.SSDScan = ops.SSDScan, PlainScan
+        try:
+            plain = run().float()
+        finally:
+            ops.SSDScan = saved
+        return kern, plain
+
+    dev = torch.device("cuda")
+    kern, plain = kernel_and_plain(lambda: serve_ex.prefill(
+        EXAMPLE_SERVE_ARCH, batch=4, prompt_len=32, full=True, seed=0,
+        device=dev)["logits"])
+    for row, gen in enumerate(out["generated"]):
+        top = kern[row].topk(2)
+        print(f"[examples] serve row {row} (bf16): next token decode "
+              f"{gen[0]} kernel prefill {int(kern[row].argmax())} plain prefill "
+              f"{int(plain[row].argmax())}; kernel top-two gap "
+              f"{float(top.values[0] - top.values[1]):.6e} max |kernel - "
+              f"plain| {float((kern[row] - plain[row]).abs().max()):.6e}",
+              flush=True)
+    cfg = dataclasses.replace(get_config(EXAMPLE_SERVE_ARCH), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tr.init_params(gen, cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=dev)
+    step = make_prefill_step(cfg)
+    kern, plain = kernel_and_plain(lambda: step(params, prompts))
+    diff = float((kern - plain).abs().max())
+    scale = max(1.0, float(plain.abs().max()))
+    same = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+    print(f"[examples] serve prefill in f32: max |kernel - plain| {diff:.6e} "
+          f"of max |logit| {scale:.6e}, next tokens equal in {same} of 4 "
+          "rows", flush=True)
+    check(diff <= AGREE_TOL * scale,
+          f"serve prefill in f32: kernel and plain logits {diff} apart, over "
+          f"{AGREE_TOL} x {scale}")
+    del params
 
 
 def np_shape(rows) -> tuple:
@@ -3935,11 +4016,16 @@ def main() -> int:
                         "bound_by", "max_abs_err")}
                        for dt, r in new.items()}}
         else:
-            m2 = next(r for r in mine if r["case"] == "mamba2")
-            kernels[-1].update(phases_ms=row["phases_ms"],
-                               mamba2_ms=m2["kernel_ms"],
-                               mamba2_plain_ms=m2["plain_ms"],
-                               mamba2_bound_ms=m2["bound_ms"])
+            # the one kernel's device ms (torch.profiler), the CUDA cores'
+            # bound beside the 3xTF32 one, the other shapes' numbers
+            kernels[-1].update(device_ms=row["device_ms"],
+                               cuda_core_bound_ms=row["cuda_core_bound_ms"],
+                               bit_equal=all(r["bit_equal"] for r in mine))
+            for case in ("hymba", "mamba2", "train_block"):
+                r = next(r for r in mine if r["case"] == case)
+                kernels[-1][case] = {k: r[k] for k in (
+                    "shape", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "cuda_core_bound_ms", "max_abs_err")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Mamba2 SSD chunk scan: hand-written CUDA kernels for Hopper
-(``csrc/ssd_scan.cu``) and their plain PyTorch version.
+"""Mamba2 SSD chunk scan: a hand-written CUDA kernel for Hopper
+(``csrc/ssd_scan.cu``) and its plain PyTorch version.
 
 :func:`ssd_scan` replaces ``repro/kernels/ssd_scan.py:ssd_scan``: inputs
 pre-scaled by the caller, ``xdt = x * dt`` and ``la = -A * dt``, with ``b``
@@ -14,22 +14,26 @@ S) tokens it forms the within-chunk dual term and passes an f32 (N, P)
 state from chunk to chunk; y (like xdt, same strides) f32. ``S % Q == 0``
 is the caller's job, as in the reference.
 
-On the card one call is the three-phase chunk scan (chunk states in
-parallel, a short recurrence over them, outputs in parallel; four launches
-on the stream, the source's header has the design and the bound), with a
-scratch of :func:`scratch_floats` floats from ``torch.empty``.
+On the card one call is one kernel launch (``ssd_scan_tc``, or
+``ssd_scan_ws`` with a producer warpgroup; the source's header has the
+design and the bound): a block walks a head's chunks in order, ``TILE``
+tokens at a time, with its state in f32 registers, every product on the
+tensor cores as three TF32 products (3xTF32); it needs no scratch. The
+tile is ``TILE`` tokens whatever ``chunk`` is: the chunked form is exact
+for any chunk length, so the chunk only sets the refusal of an S that is
+not a multiple of it.
 
-On a CUDA tensor the wrapper launches the kernels or raises; on a CPU tensor
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it computes :func:`ssd_scan_plain` (the chunked SSD algorithm of
-``models/ssm.py``, in f32), which ``chip_smoke.py`` also holds the kernels
+``models/ssm.py``, in f32), which ``chip_smoke.py`` also holds the kernel
 against on the card. On a ``meta`` tensor (the dry run,
 ``launch/dryrun.py``) it takes the plain version's shapes and computes
 nothing; the within-chunk term is counted as the full Q x Q product, as
-the reference's count of its jnp ``ssd_chunked`` does. ``ssd_scan.launches`` counts the calls that launched
-the three-phase scan (one per call, whatever its four launches).
+the reference's count of its jnp ``ssd_chunked`` does. ``ssd_scan.launches``
+counts the calls that launched the kernel (one per call).
 
 :class:`SSDScan` is the wrapper under autograd and ``torch.func``: its
-forward is :func:`ssd_scan` (the kernels on the card), its backward the
+forward is :func:`ssd_scan` (the kernel on the card), its backward the
 vector-Jacobian product of :func:`ssd_scan_plain` (the reference has no
 backward kernel), and its ``vmap`` rule folds the vmapped dim into the
 groups, so one call serves every client of a vmapped call.
@@ -46,10 +50,14 @@ from repro_torch.kernels.build import PLAIN_DEVICES, load_library
 from repro_torch.kernels.flash_attention import fold_vmapped
 from repro_torch.models.ssm import chunk_scan
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "scan_strides", "SSDScan"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "scan_strides", "kernel_plan",
+           "SSDScan", "TILE"]
 
 _LIB = "ssd_scan"
 _INVALID_VALUE = 1            # cudaErrorInvalidValue
+# tokens a tile of the kernel (``kT`` in ``csrc/ssd_scan.cu``; the CPU
+# emulation of its schedule walks the same tiles)
+TILE = 64
 
 
 def _shapes(xdt, b, chunk: int) -> tuple:
@@ -89,15 +97,28 @@ def scan_strides(t: torch.Tensor, G: int, *, features: bool) -> tuple:
 @functools.lru_cache(maxsize=None)
 def _kernels():
     lib = load_library(_LIB)
-    scratch = lib.ssd_scan_scratch_floats
-    scratch.argtypes = [ctypes.c_int] * 6
-    scratch.restype = ctypes.c_longlong
+    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     fn = lib.ssd_scan_f32
-    ll, vp = ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = ([vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, vp, ll, ll, ll, vp]
-                   + [ctypes.c_int] * 6 + [vp])
-    fn.restype = ctypes.c_int
-    return scratch, fn
+    fn.argtypes = ([vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, vp, ll, ll, ll]
+                   + [i] * 6 + [vp])
+    fn.restype = i
+    plan = lib.ssd_scan_plan
+    plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    plan.restype = i
+    return fn, plan
+
+
+def kernel_plan(G: int, r: int, S: int, P: int, N: int) -> dict:
+    """The built library's plan for a call (needs the CUDA toolkit): P
+    columns a block (``pw``), ``slices`` of P, ring ``stages``, warpgroups
+    a block (``groups``: 2 is a producer warpgroup beside the consumer for
+    a small state, two warpgroups sharing each tile for N over 64),
+    shared ``bytes`` a block."""
+    plan = _kernels()[1]
+    out = (ctypes.c_int * 5)()
+    if plan(G, r, S, P, N, out) != 0:
+        raise ValueError(f"no SSD plan fits P {P}, N {N}")
+    return dict(zip(("pw", "slices", "stages", "groups", "bytes"), out))
 
 
 def _check(xdt, la, b, c, chunk: int) -> tuple:
@@ -136,15 +157,13 @@ def ssd_scan(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
     BH, G, S, P, N, Q = _check(xdt, la, b, c, chunk)
     xs = scan_strides(xdt, G, features=True)
     ls = scan_strides(la, G, features=False)
-    scratch_floats, fn = _kernels()
+    fn = _kernels()[0]
     with torch.cuda.device(xdt.device):
         y = torch.empty_like(xdt)          # dense inputs keep their strides
         ys = scan_strides(y, G, features=True)
-        scratch = torch.empty(scratch_floats(G, BH // G, S, P, N, Q),
-                              dtype=torch.float32, device=xdt.device)
         err = fn(xdt.data_ptr(), *xs, la.data_ptr(), *ls, b.data_ptr(),
-                 c.data_ptr(), y.data_ptr(), *ys, scratch.data_ptr(), G,
-                 BH // G, S, P, N, Q, torch.cuda.current_stream().cuda_stream)
+                 c.data_ptr(), y.data_ptr(), *ys, G, BH // G, S, P, N, Q,
+                 torch.cuda.current_stream().cuda_stream)
     if err == _INVALID_VALUE:   # the sizes passed _check; the tiles do not fit
         raise ValueError(f"chunk {Q}, P {P}, N {N} need more shared memory "
                          "than a block may have")
@@ -160,7 +179,7 @@ ssd_scan.launches = 0
 class SSDScan(torch.autograd.Function):
     """``SSDScan.apply(xdt, la, b, c, chunk)``: :func:`ssd_scan` with the
     plain version's vector-Jacobian product as backward and a ``vmap`` rule
-    (one three-phase scan a vmapped call)."""
+    (one launch a vmapped call)."""
 
     @staticmethod
     def forward(xdt, la, b, c, chunk):

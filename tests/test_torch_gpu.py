@@ -775,8 +775,10 @@ def test_ssd_scan_kernel_matches_plain(cuda, G, r, S, P, N, chunk):
     c = 0.3 * torch.randn((G, S, N), generator=gen, device=cuda)
     before = ssd_scan.launches
     y = ssd_scan(xdt, la, b, c, chunk=chunk)
+    again = ssd_scan(xdt, la, b, c, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
+    assert ssd_scan.launches == before + 2
+    assert torch.equal(y, again)            # fixed order of sums, no atomics
     ref = ssd_scan_plain(xdt, la, b, c, chunk=chunk)
     assert _close(y, ref, **SSD_TOL), (y - ref).abs().max()
 
@@ -784,6 +786,7 @@ def test_ssd_scan_kernel_matches_plain(cuda, G, r, S, P, N, chunk):
 @pytest.mark.parametrize("B,H,S,P,N,chunk", [
     (2, 64, 4096, 50, 16, 64),     # hymba-1.5b's prefill, as the model lays it out
     (1, 5, 256, 7, 5, 32),         # odd widths
+    (8, 64, 256, 50, 16, 64),      # hymba-1.5b's training block (8 rows of 256)
 ])
 def test_ssd_scan_kernel_reads_the_model_layout(cuda, B, H, S, P, N, chunk):
     """(B, H, S, P) and (B, H, S) views of the model's (B, S, H, P) and
@@ -802,11 +805,32 @@ def test_ssd_scan_kernel_reads_the_model_layout(cuda, B, H, S, P, N, chunk):
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     assert y.shape == xdt.shape and y.stride() == xdt.stride()
+    assert torch.equal(y, ssd_scan(xdt, la, b, c, chunk=chunk))
     flat = ssd_scan(xdt.reshape(B * H, S, P).contiguous(),
                     la.reshape(B * H, S).contiguous(), b, c, chunk=chunk)
     assert torch.equal(y.reshape(B * H, S, P), flat)
     ref = ssd_scan_plain(xdt, la, b, c, chunk=chunk)
     assert _close(y, ref, **SSD_TOL), (y - ref).abs().max()
+
+
+def test_ssd_tile_and_plan_are_the_librarys(cuda):
+    """The wrapper's TILE (the CPU emulation's tile) is the built library's,
+    and the plan a call takes fits a block: hymba-1.5b's prefill in one
+    slice of 64 columns with a producer warpgroup, its training block in
+    slices of 56 with one warpgroup, mamba2-370m's in two of 32, N 256
+    refused."""
+    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.ssd_scan import TILE, kernel_plan
+    assert load_library("ssd_scan").ssd_scan_tile() == TILE
+    hymba = kernel_plan(2, 64, 4096, 50, 16)
+    assert (hymba["pw"], hymba["slices"], hymba["groups"]) == (64, 1, 2)
+    assert hymba["bytes"] <= 232448 and 2 <= hymba["stages"] <= 3
+    train = kernel_plan(8, 64, 256, 50, 16)
+    assert (train["pw"], train["slices"], train["groups"]) == (56, 1, 1)
+    mamba2 = kernel_plan(2, 32, 4096, 64, 128)
+    assert (mamba2["pw"], mamba2["slices"], mamba2["groups"]) == (32, 2, 1)
+    with pytest.raises(ValueError, match="no SSD plan"):
+        kernel_plan(1, 1, 256, 256, 256)
 
 
 def test_lm_kernel_wrappers_check_their_inputs(cuda):

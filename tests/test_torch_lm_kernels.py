@@ -29,6 +29,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.ops import gqa_flash, ssd_chunked_kernel
 from repro_torch.kernels.ssd_scan import scan_strides, ssd_scan, ssd_scan_plain
 
+from _ssd_tc import emulate_tc_scan
+
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)
@@ -352,48 +354,8 @@ def test_ssd_plain_is_the_wrapper_on_cpu():
 
 
 # ---------------------------------------------------------------------------
-# the three-phase chunk scan, in the card kernels' order
+# the tensor-core chunk scan, in the card kernel's order and rounding
 # ---------------------------------------------------------------------------
-
-LOG2E = 1.4426950408889634
-
-
-def _three_phase(xdt, la, b, c, Q):
-    """The card's SSD scan (``csrc/ssd_scan.cu``) in plain PyTorch, phase by
-    phase: C B^T once per (group, chunk); per head cum, exp(tot) and the
-    chunk's state contribution; the states passed chunk by chunk; outputs
-    with the decay factored about each 4-row tile's first row, as the
-    kernel applies it. xdt (G, r, S, P), la (G, r, S), b, c (G, S, N), f32."""
-    G, r, S, P = xdt.shape
-    N, nC = b.shape[-1], S // Q
-    X = xdt.reshape(G, r, nC, Q, P)
-    Bc, Cc = b.reshape(G, nC, Q, N), c.reshape(G, nC, Q, N)
-    # 1. C B^T once per (group, chunk), stored [j][i]
-    cbT = torch.einsum("gcjn,gcin->gcji", Bc, Cc)
-    # 2. per head: cum, exp(tot), (B o exp(tot - cum))^T X
-    cum = la.reshape(G, r, nC, Q).cumsum(-1)
-    tot = cum[..., -1]
-    w = torch.exp(tot[..., None] - cum)
-    states = torch.einsum("gcjn,grcjp->grcnp", Bc, w[..., None] * X)
-    # 3. h_in[k] = h; h = exp(tot_k) h + s_k, chunk by chunk
-    h = torch.zeros((G, r, N, P))
-    h_in = torch.empty_like(states)
-    for k in range(nC):
-        h_in[:, :, k] = h
-        h = torch.exp(tot[:, :, k, None, None]) * h + states[:, :, k]
-    # 4. y = exp(cum_i - cum_i0) sum_j (C B^T)_ij exp(cum_i0 - cum_j) X_j
-    #        + exp(cum_i) C_i h_in, i0 = i rounded down to its 4-row tile
-    c2 = cum * LOG2E
-    i = torch.arange(Q)
-    i0 = (i // 4) * 4
-    c0 = c2[..., i0]                                           # (G, r, nC, Q)
-    bfac = torch.exp2(c0[..., :, None] - c2[..., None, :])     # [i][j]
-    bfac = bfac * (i[None, :] <= i[:, None])
-    m = cbT.transpose(-1, -2)[:, None] * bfac                  # (G,r,nC,Q,Q)
-    intra = torch.exp2(c2 - c0)[..., None] * (m @ X)
-    inter = torch.exp2(c2)[..., None] * (Cc[:, None] @ h_in)
-    return (intra + inter).reshape(G, r, S, P)
-
 
 @pytest.mark.parametrize("G,r,S,P,N,Q", [
     (1, 2, 64, 16, 8, 64),       # one chunk
@@ -402,10 +364,11 @@ def _three_phase(xdt, la, b, c, Q):
     (1, 2, 128, 64, 128, 64),    # mamba2-370m's P and N, narrowed
     (3, 1, 96, 7, 5, 16),        # per-head b, c (G = BH), odd widths
 ])
-def test_three_phase_scan_matches_pallas(G, r, S, P, N, Q):
-    """The kernels' three-phase order (C B^T once per (batch, chunk),
-    states passed chunk by chunk) against the reference's Pallas kernel,
-    which carries the state through a sequential chunk loop."""
+def test_tensor_core_scan_matches_pallas(G, r, S, P, N, Q):
+    """The kernel's one pass (64-token tiles walked in order, the state
+    carried from tile to tile, every product as three TF32 products:
+    ``tests/_ssd_tc.py``) against the reference's Pallas kernel, which
+    carries the state through a sequential chunk loop."""
     rng = np.random.default_rng(G * 100 + P)
     xdt = rng.standard_normal((G, r, S, P)).astype(np.float32)
     la = -rng.uniform(size=(G, r, S)).astype(np.float32)
@@ -416,7 +379,7 @@ def test_three_phase_scan_matches_pallas(G, r, S, P, N, Q):
     ref = ref_ssd_scan(jnp.asarray(xdt.reshape(G * r, S, P)),
                        jnp.asarray(la.reshape(G * r, S)), jnp.asarray(bh),
                        jnp.asarray(ch), chunk=Q, interpret=True)
-    out = _three_phase(*_t(xdt, la, b, c), Q)
+    out = emulate_tc_scan(*_t(xdt, la, b, c))
     _close(out.reshape(G * r, S, P), ref, SSD_TOL)
 
 
